@@ -1,0 +1,110 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points refuse to fall back to the CPU, and the families it has not
+ported yet say so."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, "configs", "hilcodec_speech.yaml")
+
+
+def _run(code, cwd=ROOT, **kw):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, *code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120, **kw)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """Every module of hilcodec_tpu_torch, and chip_smoke.py, imported in a
+    fresh interpreter: neither `jax` nor `hilcodec_tpu` gets loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import hilcodec_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'hilcodec_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'hilcodec_tpu' or "
+        "m.startswith('hilcodec_tpu.'))\n"
+        "print(len(names), bad)\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 15, names\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_no_jax_import_statements():
+    """No source line of the port or of chip_smoke.py imports JAX or the
+    JAX package."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "hilcodec_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            for ln in f:
+                s = ln.strip()
+                assert not s.startswith(("import jax", "from jax",
+                                         "import hilcodec_tpu ",
+                                         "from hilcodec_tpu.",
+                                         "from hilcodec_tpu ")), (path, s)
+
+
+def test_entry_points_refuse_cpu_fallback():
+    """device=None means CUDA: without it the model, the engine and the CLI
+    raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from hilcodec_tpu_torch import resolve_device
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    from hilcodec_tpu_torch.utils.hparams import load_config
+    kw = load_config(CONFIG).model_kwargs.to_dict()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_codec_model("hilcodec", kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    out = _run(["-m", "hilcodec_tpu_torch.serve", "-c", CONFIG])
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line when CUDA is
+    unavailable, and in a directory that holds only chip_smoke.py."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = _run(["chip_smoke.py"])
+    assert out.returncode != 0 and '"ok": true' not in out.stdout
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0 and '"ok": true' not in out.stdout
+
+
+def test_config_builds_flagship_shapes():
+    """configs/hilcodec_speech.yaml, unmodified, builds the flagship."""
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    from hilcodec_tpu_torch.utils.hparams import load_config
+    hp = load_config(CONFIG)
+    assert hp.model == "hilcodec" and hp.data.sampling_rate == 24000
+    m = build_codec_model(hp.model, hp.model_kwargs.to_dict(), device="cpu")
+    assert m.hop_length == 320 and m.codec.encoder.n_filters == 64
+    assert m.codec.decoder.n_filters == 96
+    assert (m.vq.num_quantizers, m.vq.codebook_size, m.vq.dim) == (8, 1024,
+                                                                   128)
+
+
+@pytest.mark.parametrize("family", ["encodec", "avocodo", "audiodec"])
+def test_unported_families_point_at_roadmap(family):
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_codec_model(family, {}, device="cpu")

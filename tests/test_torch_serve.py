@@ -1,0 +1,276 @@
+"""Port serving on the CPU: SlotEngine slots against solo streams, the int16
+wire, and one TCP roundtrip through the port's CodecServer.
+
+A stream multiplexed through the S-slot engine (attaching mid-flight,
+skipping ticks, sharing ticks, reusing a dirtied slot) must give the tokens
+of the same stream run alone through the port's streaming drivers, and PCM
+within one int16 step of rounding the solo float output on the host. The
+step of slack is the batch: ATen's CPU convolution (oneDNN) picks another
+kernel for S rows than for one row in some layers (the 1-channel conv_post),
+so the floats differ by ~4e-6 and rounding to int16 can move by one step.
+The wire conversion itself is exact: it rounds half to even, as np.round
+does. Mirrors tests/test_serve.py.
+"""
+
+import asyncio
+import json
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from hilcodec_tpu_torch.models.codec import CodecModel
+from hilcodec_tpu_torch.models.hilcodec import HILCodec
+from hilcodec_tpu_torch.ops import rvq_kernel
+from hilcodec_tpu_torch.ops.rvq import ResidualVQ
+from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    model = CodecModel(
+        HILCodec(channels_enc=8, channels_dec=8, n_residual_enc=1,
+                 n_residual_dec=1, strides=(4, 2), n_fft_base=16, vq_dim=16,
+                 res_scale_enc=0.577, res_scale_dec=0.577),
+        ResidualVQ(dim=16, codebook_size=32, num_quantizers=3,
+                   kmeans_init=False), CPU)
+    gen = torch.Generator().manual_seed(0)
+    params, vq_state = model.init(gen)
+    vq_state["embed"] = vq_state["embed"] * 2.0
+    return model, params, vq_state
+
+
+def _q16(x):
+    return np.clip(np.round(np.asarray(x, np.float64) * 32768.0),
+                   -32768, 32767).astype(np.int16)
+
+
+def _dq16(x16):
+    return x16.astype(np.float32) / 32768.0
+
+
+def _assert_pcm(pcm, ref_pcm):
+    """Engine int16 PCM vs the solo float output rounded on the host."""
+    assert pcm.shape == ref_pcm.shape
+    assert np.abs(pcm.astype(np.int32) - _q16(ref_pcm).astype(np.int32)
+                  ).max() <= 1
+
+
+def _frames(wav, hop):
+    return [wav[i * hop:(i + 1) * hop] for i in range(len(wav) // hop)]
+
+
+def _stream_ref(model, params, vq_state, wav, mode="roundtrip"):
+    """Single-stream oracle through the port's plain drivers (folded
+    params, as the engine's fold=True default)."""
+    fp = model.fold_params(params)
+    ce, cd = model.init_cache(1)
+    with torch.no_grad():
+        tok, _ = model.encode_stream(fp, vq_state,
+                                     torch.from_numpy(wav)[None, None], ce)
+        if mode == "encode":
+            return tok.numpy()[:, 0, :]
+        out, _ = model.decode_stream(fp, vq_state, tok, cd)
+    return tok.numpy()[:, 0, :], out.numpy()[0, 0]
+
+
+def test_engine_parity_staggered_streams(tiny, rng):
+    """Three streams attach at different ticks, skip ticks and detach at
+    different times; each one's tokens equal its solo run, its PCM within
+    one int16 step."""
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
+                     device="cpu")
+    wavs = {k: (rng.standard_normal(hop * 6) * 0.3).astype(np.float32)
+            for k in "abc"}
+    refs = {k: _stream_ref(model, params, vq_state, _dq16(_q16(w)))
+            for k, w in wavs.items()}
+    frames = {k: _frames(w, hop) for k, w in wavs.items()}
+    got = {k: {"tokens": [], "pcm": []} for k in wavs}
+    slot_of, cursor = {}, {k: 0 for k in wavs}
+    schedule = [("a",), ("a", "b"), ("a", "b"), ("a", "b", "c"),
+                ("a", "c"), ("a", "b", "c"), ("b", "c"), ("b", "c"),
+                ("c",)]
+    for tick_streams in schedule:
+        for k in tick_streams:
+            if k not in slot_of:
+                slot_of[k] = eng.attach()
+            eng.submit(slot_of[k], frames[k][cursor[k]])
+            cursor[k] += 1
+        out = eng.tick()
+        for k in tick_streams:
+            got[k]["tokens"].append(out[slot_of[k]]["tokens"])
+            got[k]["pcm"].append(out[slot_of[k]]["pcm"])
+        for k, i in cursor.items():
+            if k in slot_of and i == len(frames[k]):
+                eng.detach(slot_of.pop(k))
+    for k in wavs:
+        ref_tok, ref_pcm = refs[k]
+        np.testing.assert_array_equal(np.stack(got[k]["tokens"], axis=1),
+                                      ref_tok)
+        _assert_pcm(np.concatenate(got[k]["pcm"]), ref_pcm)
+
+
+def test_int16_wire_matches_host_rounding():
+    """The device-side conversion equals np.round + clip on the host,
+    half-way values and out-of-range values included."""
+    from hilcodec_tpu_torch.serve.engine import _dec16, _enc16
+    k = np.arange(-40000, 40000, 7, dtype=np.float64)
+    x = np.concatenate([k / 32768.0, (k + 0.5) / 32768.0]).astype(np.float32)
+    np.testing.assert_array_equal(_enc16(torch.from_numpy(x)).numpy(),
+                                  _q16(x))
+    pcm = np.arange(-32768, 32768, dtype=np.int16)
+    np.testing.assert_array_equal(_dec16(torch.from_numpy(pcm)).numpy(),
+                                  _dq16(pcm))
+
+
+def test_skipped_tick_leaves_state_unchanged(tiny, rng):
+    """A tick in which a slot has no frame leaves its cache rows exactly as
+    they were; other slots' rows move on."""
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=2, mode="roundtrip",
+                     device="cpu")
+    a, b = eng.attach(), eng.attach()
+    for _ in range(2):
+        eng.submit(a, (rng.standard_normal(hop) * 0.3).astype(np.float32))
+        eng.submit(b, (rng.standard_normal(hop) * 0.3).astype(np.float32))
+        eng.tick()
+    before = [c.clone() for c in eng._cache_enc + eng._cache_dec]
+    eng.submit(b, (rng.standard_normal(hop) * 0.3).astype(np.float32))
+    eng.tick()
+    after = eng._cache_enc + eng._cache_dec
+    assert all(torch.equal(x[a], y[a]) for x, y in zip(before, after))
+    assert not all(torch.equal(x[b], y[b]) for x, y in zip(before, after))
+
+
+def test_engine_slot_reuse_is_clean(tiny, rng):
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=1, mode="roundtrip",
+                     device="cpu")
+    s = eng.attach()
+    for f in _frames((rng.standard_normal(hop * 3) * 0.5
+                      ).astype(np.float32), hop):
+        eng.submit(s, f)
+        eng.tick()
+    eng.detach(s)
+    fresh = (rng.standard_normal(hop * 4) * 0.3).astype(np.float32)
+    ref_tok, ref_pcm = _stream_ref(model, params, vq_state,
+                                   _dq16(_q16(fresh)))
+    s2 = eng.attach()
+    assert s2 == s
+    toks, pcms = [], []
+    for f in _frames(fresh, hop):
+        eng.submit(s2, f)
+        res = eng.tick()[s2]
+        toks.append(res["tokens"])
+        pcms.append(res["pcm"])
+    np.testing.assert_array_equal(np.stack(toks, axis=1), ref_tok)
+    _assert_pcm(np.concatenate(pcms), ref_pcm)
+
+
+def test_engine_encode_and_decode_modes(tiny, rng):
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    wav = _dq16(_q16((rng.standard_normal(hop * 5) * 0.3
+                      ).astype(np.float32)))
+    ref_tok, ref_pcm = _stream_ref(model, params, vq_state, wav)
+
+    enc = SlotEngine(model, params, vq_state, slots=2, mode="encode",
+                     device="cpu")
+    s = enc.attach()
+    toks = []
+    for f in _frames(wav, hop):
+        enc.submit(s, f)
+        toks.append(enc.tick()[s]["tokens"])
+    np.testing.assert_array_equal(np.stack(toks, axis=1), ref_tok)
+
+    dec = SlotEngine(model, params, vq_state, slots=2, mode="decode",
+                     device="cpu")
+    s = dec.attach()
+    pcms = []
+    for i in range(ref_tok.shape[1]):
+        dec.submit(s, ref_tok[:, i])
+        pcms.append(dec.tick()[s]["pcm"])
+    _assert_pcm(np.concatenate(pcms), ref_pcm)
+
+
+def test_engine_warmup_recover_stats(tiny, rng):
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=2, mode="roundtrip",
+                     device="cpu")
+    assert eng.warmup() >= 0 and eng.stats["ticks"] == 1
+    assert not any(c.any() for c in eng._cache_enc + eng._cache_dec)
+    s = eng.attach()
+    eng.submit(s, (rng.standard_normal(hop) * 0.3).astype(np.float32))
+    eng.tick()
+    eng.recover()
+    assert not any(c.any() for c in eng._cache_enc + eng._cache_dec)
+    assert eng.pending()          # the attached slot is marked for reset
+    assert eng.stats["frames"] == 1
+    eng.attach()                  # the second and last slot
+    with pytest.raises(RuntimeError, match="busy"):
+        eng.attach()
+
+
+def test_engine_requires_cuda_unless_cpu_is_named(tiny):
+    """No silent CPU fallback: device=None means CUDA and raises here."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the engine would use it")
+    model, params, vq_state = tiny
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SlotEngine(model, params, vq_state, slots=1)
+
+
+def test_tcp_roundtrip_two_clients(tiny, rng):
+    """Two clients over localhost sockets on the port's CodecServer; the
+    engine on CPU tensors runs the plain quantizer and launches nothing."""
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
+                     device="cpu")
+    wavs = [(rng.standard_normal(hop * 6) * 0.3).astype(np.float32)
+            for _ in range(2)]
+    lenf = struct.Struct("<I")
+
+    async def client(port, frames):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(b'{"mode": "auto"}\n')
+        hdr = json.loads((await reader.readline()).decode())
+        assert hdr["ok"] and hdr["hop"] == hop and hdr["n_q"] == 3
+        toks, pcms = [], []
+        for f in frames:
+            writer.write(lenf.pack(f.nbytes) + f.tobytes())
+            await writer.drain()
+            (ln,) = lenf.unpack(await reader.readexactly(4))
+            arr = np.frombuffer(await reader.readexactly(ln), np.int16)
+            toks.append(arr[:3].copy())
+            pcms.append(arr[3:].copy())
+        writer.close()
+        return np.stack(toks, axis=1), np.concatenate(pcms)
+
+    async def go():
+        srv = CodecServer(eng, sr=24000, port=0)
+        await srv.start()
+        try:
+            return await asyncio.wait_for(asyncio.gather(
+                *(client(srv.port, [_q16(f) for f in _frames(w, hop)])
+                  for w in wavs)), 60)
+        finally:
+            await srv.stop()
+
+    rvq_kernel.reset_launches()
+    results = asyncio.run(go())
+    for w, (tok, pcm) in zip(wavs, results):
+        ref_tok, ref_pcm = _stream_ref(model, params, vq_state,
+                                       _dq16(_q16(w)))
+        np.testing.assert_array_equal(tok, ref_tok)
+        _assert_pcm(pcm, ref_pcm)
+    assert eng.stats["frames"] == 12 and not eng.pending()
+    assert rvq_kernel.LAUNCHES[rvq_kernel.KERNEL] == 0
