@@ -6,11 +6,14 @@ CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda), and exits non-zero
 without a result line when CUDA is unavailable or a phase fails. Phases:
 
   1. device: card name and power limit, TF32 off, build every kernel of
-     the path from the checkout's sources (one nvcc per source, started
-     together);
+     the path from the checkout's sources (csrc/rvq.cu and
+     csrc/segment.cu, one nvcc per source, started together);
   2. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the serving path gives it and more, then timed with
-     CUDA events beside its plain version and its bound;
+     CUDA events beside its plain version and its bound: the RVQ cascade
+     (also at n_q = 32, K2's shape), and the decoder and encoder frame
+     kernels on the flagship at 1, 7, 16 and 128 streams over 3 frames,
+     output and every cache;
   3. serving: the flagship speech model (configs/hilcodec_speech.yaml,
      seeded random weights, N(0,1) codebooks, folded) behind a 16-slot
      roundtrip SlotEngine and the TCP CodecServer on 127.0.0.1; several
@@ -20,7 +23,15 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      must cover every tick;
   4. timings: engine tick p50/p99 and aggregate real-time factor at 16 and
      128 slots (engine ticks without TCP), then device kernel time and
-     kernel count per tick under torch.profiler.
+     kernel count per tick under torch.profiler;
+  5. frame-kernel path: encode_stream / decode_stream(megakernel=True) on
+     the flagship at 128 streams x 75 frames of seeded audio, held against
+     megakernel=False (tokens exact or f32 ties, PCM within PCM_TOL_LSB on
+     the same tokens); the frame kernels' launch counts of this run must
+     be one per frame;
+  6. bench: `python -m hilcodec_tpu_torch.bench 128 --seconds 1` run
+     in-process, plain and --megakernel in turns (plain, kernel, kernel,
+     plain), each JSON line logged.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -44,13 +55,24 @@ N_CLIENTS = 8
 CLIENT_FRAMES = 75            # 1 s at 24 kHz / hop 320
 SERVE_SLOTS = 16
 TIMED_TICKS = 100
+PATH_STREAMS = 128            # the frame-kernel path and the bench
+FRAME_BATCHES = (1, 7, 16, 128)
+# frame kernels vs their plain version: the largest |difference| of a
+# tensor (output or cache) over its largest |value| (at least 1). The
+# kernel sums up to 1536 products per 1x1 conv in another order than
+# cuBLAS and ATen, through ~30 chained layers; 5e-5 is ~400 f32 ulps of
+# the tensor's scale.
+FRAME_TOL = 5e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# PCM: engine int16 output vs the solo float stream rounded on the host.
-# The two runs batch 16 rows vs 1, so cuDNN may pick other algorithms and
-# sum in another order (~1e-6 relative through ~100 layers); rounding to
-# int16 can then differ by one step. Allow 2 steps (6.1e-5).
+# PCM: engine int16 output vs the solo float stream rounded on the host,
+# and the frame-kernel path vs the plain one. On the CPU the port is
+# bitwise batch-invariant (tests/test_torch_serve.py holds 0 steps), but on
+# the card cuDNN and cuBLAS may pick their algorithms by batch (16 rows vs
+# 1) and the frame kernels sum in another order (~1e-6 relative through
+# ~100 layers); rounding to int16 can then differ by one step. Allow 2
+# steps (6.1e-5).
 PCM_TOL_LSB = 2
 
 
@@ -99,7 +121,7 @@ def phase_device():
     set_f32_parity_mode()
     log("[device] TF32 off for cuDNN convolutions and cuBLAS matmuls "
         "(f32 parity mode)")
-    sources = ["rvq"]
+    sources = ["rvq", "segment"]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(cuda_build.build, sources))
@@ -161,17 +183,180 @@ def phase_kernels(dev):
                              f"version at {failed}")
 
     timings = {}
-    for M in (SERVE_SLOTS, 128):
-        x = torch.randn((1, M, 128), generator=gen).to(dev)
-        ms = cuda_ms(lambda: rvq_kernel.quantize_cuda(x, books8, 8))
-        plain_ms = cuda_ms(lambda: rvq.quantize(x, books8, 8))
-        bound_ms, bound_by = rvq_bound_ms(M, 8, 1024, 128)
-        timings[M] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"[kernel] rvq_cascade M={M} n=8 K=1024 C=128: kernel "
-            f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-            f"{bound_ms * 1e3:.2f} us ({bound_by}); no single PyTorch call "
-            f"computes the cascade, so there is no library yardstick")
+    for books, n in ((books8, 8), (books32, 32)):
+        for M in (SERVE_SLOTS, 128):
+            x = torch.randn((1, M, 128), generator=gen).to(dev)
+            ms = cuda_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
+            plain_ms = cuda_ms(lambda: rvq.quantize(x, books, n))
+            bound_ms, bound_by = rvq_bound_ms(M, n, 1024, 128)
+            timings[(M, n)] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"[kernel] rvq_cascade M={M} n={n} K=1024 C=128: kernel "
+                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by}); no single PyTorch "
+                f"call computes the cascade, so there is no library "
+                f"yardstick")
     return max_err, timings
+
+
+def frame_bound_ms(mk, w, x, aux, caches):
+    """Least time for one frame step of `mk` on these inputs: the op list's
+    f32 operations over the f32 peak vs its bytes (input, aux, weights and
+    caches read once; output and caches written once) over the HBM rate.
+    Returns (ms, "operations"|"bytes", flops)."""
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+    B = x.shape[0]
+    t, c = (x.shape[1], 1) if x.ndim == 2 else (x.shape[1], x.shape[2])
+    flops = 0
+    for op, (ti, ci, to, co) in zip(mk.ops, DK.op_shapes(mk.ops, t, c)):
+        a = op.attrs
+        if op.kind == "pw":
+            flops += 2 * to * ci * co
+        elif op.kind == "mix":
+            flops += 2 * to * a["f"] * co + to * co
+        elif op.kind in ("dw", "post", "dense1ch"):
+            flops += 2 * to * (ci if op.kind == "post" else co) * a["k"]
+        elif op.kind == "dws":
+            flops += 2 * to * co * a["k"]
+        elif op.kind == "convt":
+            flops += 4 * to * co
+        elif op.kind == "l2norm":
+            flops += 3 * ti * ci
+        elif op.kind != "res_begin" or a["pre_scale"] is not None:
+            flops += ti * ci                 # act, scale, residual add
+    flops *= B
+    t_out, c_out = DK.op_shapes(mk.ops, t, c)[-1][2:]
+    floats = (x.numel() + sum(a.numel() for a in aux)
+              + sum(v.numel() for lay in w.per_op if lay
+                    for v in lay.values())
+              + 2 * sum(cc.numel() for cc in caches) + B * t_out * c_out)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, 4.0 * floats / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def frame_cases(model, params, B, gen):
+    """Per frame kernel: (name, its step object, params, inputs(cache,
+    frame) -> (kernel inputs x, aux, the layer caches, the next wav ring),
+    first cache, frame maker)."""
+    import torch
+    from hilcodec_tpu_torch.models.codec import (_decoder_megakernel,
+                                                 _encoder_megakernel)
+    from hilcodec_tpu_torch.ops import rvq
+    dev = model.device
+    dm = _decoder_megakernel(model.codec.decoder)
+    em = _encoder_megakernel(model.codec.encoder)
+    books = torch.randn((8, 1024, 128), generator=gen).to(dev)
+
+    def dec_frame():
+        tok = torch.randint(0, 1024, (8, B, 1), generator=gen).to(dev)
+        return rvq.dequantize(tok, books)          # time-major [B, 1, 128]
+
+    def enc_frame():
+        return (torch.randn((B, 1, model.hop_length), generator=gen)
+                * 0.3).to(dev)
+
+    def dec_inputs(cache, q):
+        return q, [], cache, None
+
+    def enc_inputs(cache, x):
+        ring, window, aux = em.frame_inputs(cache[0], x)
+        return window, aux, cache[1:], ring
+
+    return [("decoder_frame", dm, params["decoder"], dec_inputs,
+             dm.init_cache(B, device=dev), dec_frame),
+            ("encoder_frame", em, params["encoder"], enc_inputs,
+             em.init_cache(B, device=dev), enc_frame)]
+
+
+def phase_frame_kernels(model, params):
+    """The decoder and encoder frame kernels against their plain version on
+    the flagship, 3 frames with the caches threaded through, then timed."""
+    import torch
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    worst = {}
+    timings = {}
+    for B in FRAME_BATCHES:
+        for name, mk, p, inputs, cache, frame in frame_cases(
+                model, params, B, gen):
+            w = mk.weights(p)
+            rel = 0.0
+            abs_err = 0.0
+            for f in range(3):
+                x, aux, layer_caches, ring = inputs(cache, frame())
+                y, got = mk.run(p, x, aux, layer_caches)
+                torch.cuda.synchronize()
+                y_ref, ref = DK.run_plain(mk.ops, w.per_op, x, aux,
+                                          layer_caches)
+                for a, b in zip([y] + got, [y_ref] + ref):
+                    if a.shape != b.shape or not torch.isfinite(a).all():
+                        raise AssertionError(f"{name} B={B}: bad output")
+                    err = float((a - b).abs().max())
+                    scale = max(1.0, float(b.abs().max()))
+                    abs_err, rel = max(abs_err, err), max(rel, err / scale)
+                cache = ref if ring is None else [ring] + ref
+            ok = rel <= FRAME_TOL
+            log(f"[kernel] {name} B={B} x3 frames: output and "
+                f"{len(layer_caches)} caches max abs err {abs_err:.3g}, "
+                f"max err / scale {rel:.3g} (tolerance {FRAME_TOL}) -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at B={B}")
+            worst[name] = max(worst.get(name, 0.0), abs_err)
+            if B in (SERVE_SLOTS, PATH_STREAMS):
+                ms = cuda_ms(lambda: mk.run(p, x, aux, layer_caches),
+                             repeats=20)
+                plain_ms = cuda_ms(lambda: DK.run_plain(
+                    mk.ops, w.per_op, x, aux, layer_caches), repeats=20)
+                bound_ms, bound_by, flops = frame_bound_ms(
+                    mk, w, x, aux, layer_caches)
+                timings[(name, B)] = (ms, plain_ms, bound_ms, bound_by)
+                log(f"[kernel] {name} B={B}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}; {flops / B / 1e6:.1f} MFLOP a stream); "
+                    f"no single PyTorch call computes a frame step")
+                phase_breakdown(name, mk, p, x, aux, layer_caches)
+    return worst, timings
+
+
+PHASE_NAMES = ("ewise", "pw", "dw", "convt", "post", "dense1ch", "dws",
+               "mix", "l2norm")
+
+
+def phase_breakdown(name, mk, p, x, aux, caches):
+    """Where a frame kernel's time goes, by phase kind: the kernel is timed
+    on every prefix of its phase table (the first k phases), and each
+    phase is charged the difference between consecutive prefixes (its work
+    and the grid barrier before it)."""
+    import torch
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+    B = x.shape[0]
+    w = mk.weights(p)
+    t, c = (x.shape[1], 1) if x.ndim == 2 else (x.shape[1], x.shape[2])
+    plan = mk.plan(w, B, t, c, x.device)
+    kinds = plan.phases.cpu().numpy().view(DK.PHASE_DTYPE)["kind"]
+    t_out, c_out = DK.op_shapes(mk.ops, t, c)[-1][2:]
+    y = torch.empty((B, t_out, c_out), device=x.device)
+    cache_in = mk.pack(caches, B)
+    cache_out = torch.empty_like(cache_in)
+    x, aux = x.contiguous(), [a.contiguous() for a in aux]
+    prev, by_kind = 0.0, {}
+    for k in range(1, plan.n_phases + 1):
+        sub = DK.Plan(plan.phases, k, plan.act_max)
+        ms = cuda_ms(lambda: DK.launch(mk.kernel, {mk.kernel: 0}, sub,
+                                       w.flat, x, y, aux, cache_in,
+                                       cache_out, B), calls=5, repeats=5)
+        kind = PHASE_NAMES[int(kinds[k - 1])]
+        n, tot = by_kind.get(kind, (0, 0.0))
+        by_kind[kind] = (n + 1, tot + ms - prev)
+        prev = ms
+    log(f"[breakdown] {name} B={B}, {plan.n_phases} phases, "
+        f"{prev:.4f} ms: " + ", ".join(
+            f"{kind} x{n} {tot:.4f} ms"
+            for kind, (n, tot) in sorted(by_kind.items(),
+                                         key=lambda kv: -kv[1][1])))
 
 
 # --------------------------------------------------------------- phase 3
@@ -383,6 +568,82 @@ def profile_ticks(engine, slots, p50_s, rng, ticks=10):
             f"x{e.count / ticks:.0f}/tick  {e.key[:80]}")
 
 
+# --------------------------------------------------------------- phase 5
+
+def phase_frame_path(model, params, vq_state):
+    """encode_stream / decode_stream with the frame kernels at 128 streams
+    against the plain frame step; returns each frame kernel's launches."""
+    import torch
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+    from hilcodec_tpu_torch.ops import encoder_kernel as EK
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+
+    hop, books = model.hop_length, vq_state["embed"]
+    wav = torch.from_numpy(np.stack([
+        client_audio(i, hop).astype(np.float32) / 32768.0
+        for i in range(PATH_STREAMS)])[:, None]).to(model.device)
+    ce, cd = model.init_cache(PATH_STREAMS)
+    with torch.no_grad():
+        DK.reset_launches()
+        EK.reset_launches()
+        t0 = time.perf_counter()
+        tok, ce_k = model.encode_stream(params, vq_state, wav, ce,
+                                        megakernel=True)
+        out, cd_k = model.decode_stream(params, vq_state, tok, cd,
+                                        megakernel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {DK.KERNEL: DK.LAUNCHES[DK.KERNEL],
+                    EK.KERNEL: EK.LAUNCHES[EK.KERNEL]}
+        # the plain frame step on the same audio, latents kept for the tie
+        # analysis, then the plain decoder on the kernel path's tokens
+        cache, zs, ref = ce, [], []
+        for f in range(CLIENT_FRAMES):
+            z, cache = model.codec.encoder.step(
+                params["encoder"], cache, wav[:, :, f * hop:(f + 1) * hop])
+            zs.append(z)
+            ref.append(rvq_kernel.quantize(z.transpose(1, 2), books))
+        ref_tok = torch.cat(ref, -1)
+        ref_out, cd_p = model.decode_stream(params, vq_state, tok, cd)
+    log(f"[path] frame-kernel path: {PATH_STREAMS} streams x {CLIENT_FRAMES} "
+        f"frames encoded and decoded in {wall:.2f} s; launches {launches}")
+    for k, v in launches.items():
+        if v != CLIENT_FRAMES:
+            raise AssertionError(f"{k} launched {v} times for "
+                                 f"{CLIENT_FRAMES} frames")
+    rep = rvq.token_parity_report(tok, ref_tok,
+                                  torch.cat(zs, -1).transpose(1, 2), books)
+    if not rep["ok"]:
+        raise AssertionError(f"frame-kernel tokens differ beyond f32 ties: "
+                             f"{rep}")
+    q = [torch.clamp(torch.round(o * 32768.0), -32768, 32767).long()
+         for o in (out, ref_out)]
+    lsb = int((q[0] - q[1]).abs().max())
+    if (out.shape != wav.shape or not torch.isfinite(out).all()
+            or lsb > PCM_TOL_LSB):
+        raise AssertionError(f"frame-kernel PCM off by {lsb} steps")
+    for a, b in zip(ce_k + cd_k, cache + cd_p):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError("frame-kernel caches changed shape")
+    log(f"[path] tokens vs the plain frame step: mismatches "
+        f"{rep['mismatches']} (ties {rep['ties']}, not ties "
+        f"{rep['not_ties']}); PCM on the same tokens max |diff| {lsb} int16 "
+        f"steps (tolerance {PCM_TOL_LSB})")
+    return launches
+
+
+# --------------------------------------------------------------- phase 6
+
+def phase_bench():
+    """The bench entry at 128 streams and 1 s of audio, plain and with the
+    frame kernels in turns, in this process."""
+    from hilcodec_tpu_torch import bench
+    base = [str(PATH_STREAMS), "--seconds", "1"]
+    for extra in ([], ["--megakernel"], ["--megakernel"], []):
+        log(f"[bench] python -m hilcodec_tpu_torch.bench "
+            f"{' '.join(base + extra)}: {json.dumps(bench.run(base + extra))}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -392,22 +653,41 @@ def main() -> int:
     import hilcodec_tpu_torch  # noqa: F401  (fails outside a checkout)
     from hilcodec_tpu_torch.ops import rvq_kernel
 
+    from hilcodec_tpu_torch.ops import decoder_kernel, encoder_kernel
+
     name, line = phase_device()
     max_err, timings = phase_kernels(torch.device("cuda"))
     model, params, vq_state, sr = build_flagship("cuda")
+    frame_err, frame_timings = phase_frame_kernels(model, params)
     launches = phase_serve(model, params, vq_state, sr)
     phase_timings(model, params, vq_state, line)
+    frame_launches = phase_frame_path(model, params, vq_state)
+    phase_bench()
 
-    # the serving path launches the kernel at M = SERVE_SLOTS rows
-    ms, plain_ms, bound_ms, bound_by = timings[SERVE_SLOTS]
-    print(line)
-    print(json.dumps({"kernels": [{
+    # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
+    # 8 stages; the frame-kernel path runs the frame kernels at 128 streams
+    ms, plain_ms, bound_ms, bound_by = timings[(SERVE_SLOTS, 8)]
+    kernels = [{
         "name": rvq_kernel.KERNEL, "route": "cuda",
         "source": rvq_kernel.SOURCE,
         "replaces": "hilcodec_tpu/ops/pallas_rvq.py:148",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}]
+    for mod, replaces in ((decoder_kernel,
+                           "hilcodec_tpu/ops/pallas_decoder.py:490"),
+                          (encoder_kernel,
+                           "hilcodec_tpu/ops/pallas_encoder.py:234")):
+        ms, plain_ms, bound_ms, bound_by = frame_timings[(mod.KERNEL,
+                                                          PATH_STREAMS)]
+        kernels.append({
+            "name": mod.KERNEL, "route": "cuda", "source": mod.SOURCE,
+            "replaces": replaces, "launches": frame_launches[mod.KERNEL],
+            "max_abs_err": frame_err[mod.KERNEL], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
+    print(line)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

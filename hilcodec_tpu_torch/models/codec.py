@@ -5,23 +5,38 @@ Python loops over frames (the JAX package's `lax.scan`), one encoder /
 decoder step per frame, with the caches in the JAX order and the JAX
 output shapes (tokens `[n, B, L]`, wav `[B, 1, L*hop]`). The quantizer is
 the CUDA kernel wrapper `ops/rvq_kernel.quantize`, which runs the plain
-version for CPU tensors only.
+version for CPU tensors only. `encode_stream` / `decode_stream` take
+`megakernel=True` to run each frame step as one launch of the encoder /
+decoder frame kernel; it is off by default, as in the JAX package, whose
+automatic choice never selects it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
+from ..ops import decoder_kernel, encoder_kernel
 from ..ops import rvq as Q
 from ..ops import rvq_kernel
 from .hilcodec import HILCodec, params_to
 
 Params = Dict[str, Any]
 Cache = List[torch.Tensor]
+
+
+@functools.lru_cache(maxsize=16)
+def _decoder_megakernel(decoder) -> decoder_kernel.DecoderMegakernel:
+    return decoder_kernel.DecoderMegakernel(decoder)
+
+
+@functools.lru_cache(maxsize=16)
+def _encoder_megakernel(encoder) -> encoder_kernel.EncoderMegakernel:
+    return encoder_kernel.EncoderMegakernel(encoder)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,27 +103,49 @@ class CodecModel:
 
     def encode_stream(self, params: Params, vq_state: Q.VQState,
                       wav: torch.Tensor, cache: Cache,
-                      n: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-        """wav [B, 1, L*hop] -> (tokens [n, B, L], new_cache)."""
+                      n: Optional[int] = None, megakernel: bool = False
+                      ) -> Tuple[torch.Tensor, Cache]:
+        """wav [B, 1, L*hop] -> (tokens [n, B, L], new_cache).
+
+        megakernel=True runs each frame's encoder step as one launch of the
+        encoder frame kernel (ops/encoder_kernel.py; its plain version for
+        CPU tensors), on folded params; the cache list handed in and out
+        keeps its order and shapes."""
         books = vq_state["embed"]
+        step = self.codec.encoder.step
+        if megakernel:
+            mk = _encoder_megakernel(self.codec.encoder)
+            cache, step = mk.cache_to_time_major(cache), mk.step
         toks = []
         for x in self._frames(wav):
-            z, cache = self.codec.encoder.step(params["encoder"], cache, x)
+            z, cache = step(params["encoder"], cache, x)
             toks.append(rvq_kernel.quantize(z.transpose(1, 2), books, n))
+        if megakernel:
+            cache = mk.cache_from_time_major(cache)
         return torch.cat(toks, dim=-1), cache
 
     def decode_stream(self, params: Params, vq_state: Q.VQState,
-                      tokens: torch.Tensor, cache: Cache
-                      ) -> Tuple[torch.Tensor, Cache]:
-        """tokens [n, B, L] -> (wav [B, 1, L*hop], new_cache)."""
+                      tokens: torch.Tensor, cache: Cache,
+                      megakernel: bool = False) -> Tuple[torch.Tensor, Cache]:
+        """tokens [n, B, L] -> (wav [B, 1, L*hop], new_cache).
+
+        megakernel=True runs each frame's decoder step as one launch of the
+        decoder frame kernel (ops/decoder_kernel.py; its plain version for
+        CPU tensors), on folded params; the cache list handed in and out
+        keeps its order and shapes."""
         books = vq_state["embed"]
         dtype = cache[0].dtype if cache else torch.float32
+        step = self.codec.decoder.step
+        if megakernel:
+            mk = _decoder_megakernel(self.codec.decoder)
+            cache, step = mk.cache_to_time_major(cache), mk.step
         outs = []
         for t in range(tokens.shape[-1]):
             q = Q.dequantize(tokens[:, :, t:t + 1], books).to(dtype)
-            y, cache = self.codec.decoder.step(params["decoder"], cache,
-                                               q.transpose(1, 2))
+            y, cache = step(params["decoder"], cache, q.transpose(1, 2))
             outs.append(y)
+        if megakernel:
+            cache = mk.cache_from_time_major(cache)
         return torch.cat(outs, dim=-1), cache
 
     def encode_decode_stream(self, params: Params, vq_state: Q.VQState,

@@ -11,8 +11,17 @@ The semantics are the JAX package's, not torch's `SConvTranspose1d` trim:
     full transposed conv cut at L*s (the JAX right pad is s-1 on an
     lhs-dilated conv); a streaming step keeps floor(d(k-1)/s) input
     frames and drops the first cache_len*s output samples.
-These are plain cuDNN / ATen convolutions: the JAX package runs them as
-XLA convolutions, not as Pallas kernels.
+These are plain cuDNN / ATen convolutions (the JAX package runs them as
+XLA convolutions, not as Pallas kernels). On the CPU, two forms must not
+let a row's result depend on the batch, so that a stream gives the same
+bits alone as inside a slot batch: oneDNN picks its kernel for a pointwise
+(1x1) or a 1-output-channel convolution by batch size. For CPU tensors
+`conv1d` computes a pointwise conv as `row_matmul` over time-major rows
+and a 1-output-channel conv as an explicit k-tap sum followed by one
+channel reduction. Depthwise, transposed, strided and 1-input-channel
+convolutions are batch-invariant as they are. On the card every
+convolution stays with cuDNN, which is faster there and not bitwise
+batch-invariant in any form.
 """
 
 from __future__ import annotations
@@ -23,6 +32,30 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+# rows per product in row_matmul on the CPU
+ROW_BLOCK = 16
+
+
+def row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ b [K, N], each row computed the same way whatever the
+    number of rows.
+
+    MKL picks its CPU kernel by row count (one row goes to a GEMV), which
+    changes a row's low bits with the batch. On the CPU every row therefore
+    goes through a product of exactly ROW_BLOCK rows (the last block padded
+    with zeros); on the card this is one matmul."""
+    if a.device.type != "cpu":
+        return a @ b
+    rows = a.reshape(-1, a.shape[-1])
+    m = rows.shape[0]
+    pad = (-m) % ROW_BLOCK
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
+    b = b.contiguous()
+    out = torch.cat([rows[i:i + ROW_BLOCK] @ b
+                     for i in range(0, rows.shape[0], ROW_BLOCK)])
+    return out[:m].reshape(*a.shape[:-1], b.shape[1])
+
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            stride: int = 1, dilation: int = 1, groups: int = 1,
@@ -30,8 +63,23 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """Plain conv1d with asymmetric zero padding (left, right)."""
     if padding != (0, 0):
         x = F.pad(x, padding)
-    return F.conv1d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                    stride=stride, dilation=dilation, groups=groups)
+    w = w.to(x.dtype)
+    b = None if b is None else b.to(x.dtype)
+    cpu = x.device.type == "cpu"
+    if cpu and groups == 1 and stride == 1 and w.shape[-1] == 1:
+        y = row_matmul(x.transpose(1, 2), w[:, :, 0].T).transpose(1, 2)
+        return y if b is None else y + b[None, :, None]
+    if cpu and groups == 1 and stride == 1 and w.shape[0] == 1:
+        k = w.shape[-1]
+        t = x.shape[-1] - dilation * (k - 1)
+        y = None
+        for j in range(k):
+            term = (x[:, :, j * dilation:j * dilation + t]
+                    * w[0, :, j][None, :, None])
+            y = term if y is None else y + term
+        y = torch.sum(y, dim=1, keepdim=True)
+        return y if b is None else y + b[None, :, None]
+    return F.conv1d(x, w, b, stride=stride, dilation=dilation, groups=groups)
 
 
 def causal_pad_total(kernel_size: int, stride: int = 1,

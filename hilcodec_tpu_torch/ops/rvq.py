@@ -15,6 +15,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .conv import row_matmul
+
 VQState = Dict[str, torch.Tensor]
 
 
@@ -23,7 +25,7 @@ def _stage_indices(residual: torch.Tensor,
     """First-min-index nearest codeword. residual [M, C], embed [K, C]."""
     r32, e32 = residual.float(), embed.float()
     dist = (torch.sum(r32 * r32, dim=1, keepdim=True)
-            - 2.0 * (r32 @ e32.T)
+            - 2.0 * row_matmul(r32, e32.T)
             + torch.sum(e32 * e32, dim=1)[None, :])
     # torch.argmin returns the first index among equal minima
     return torch.argmin(dist, dim=1)

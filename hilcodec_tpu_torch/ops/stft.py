@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .conv import row_matmul
+
 
 def hann_window_np(win_size: int) -> np.ndarray:
     """Periodic Hann (numpy), matching torch.hann_window(win_size)."""
@@ -65,7 +67,7 @@ def causal_stft_mag(x: torch.Tensor, n_fft: int, hop: int,
         raise ValueError(f"input length {x.shape[-1]} shorter than "
                          f"frame_length {n_fft}")
     frames = x.float().unfold(-1, n_fft, hop)           # [B, L, n_fft]
-    spec = frames @ causal_basis_t(n_fft, win_size, x.device)
+    spec = row_matmul(frames, causal_basis_t(n_fft, win_size, x.device))
     f = n_fft // 2 + 1
     re, im = spec[..., :f], spec[..., f:]
     mag = torch.sqrt(torch.clamp(re ** 2 + im ** 2, min=eps))

@@ -2,12 +2,14 @@
 wire, and one TCP roundtrip through the port's CodecServer.
 
 A stream multiplexed through the S-slot engine (attaching mid-flight,
-skipping ticks, sharing ticks, reusing a dirtied slot) must give the tokens
-of the same stream run alone through the port's streaming drivers, and PCM
-within one int16 step of rounding the solo float output on the host. The
-step of slack is the batch: ATen's CPU convolution (oneDNN) picks another
-kernel for S rows than for one row in some layers (the 1-channel conv_post),
-so the floats differ by ~4e-6 and rounding to int16 can move by one step.
+skipping ticks, sharing ticks, reusing a dirtied slot) must give exactly
+the tokens and the int16 PCM of the same stream run alone through the
+port's encode_stream / decode_stream, its float output rounded on the
+host. That holds bitwise because on the CPU every layer of the frame step
+computes a row the same way whatever the batch (ops/conv.py: pointwise
+convs as fixed-size row-block matmuls, the 1-channel conv_post as a tap
+sum and one channel reduction; oneDNN's convolution picked its kernel by
+batch size there).
 The wire conversion itself is exact: it rounds half to even, as np.round
 does. Mirrors tests/test_serve.py.
 """
@@ -53,10 +55,9 @@ def _dq16(x16):
 
 
 def _assert_pcm(pcm, ref_pcm):
-    """Engine int16 PCM vs the solo float output rounded on the host."""
+    """Engine int16 PCM equals the solo float output rounded on the host."""
     assert pcm.shape == ref_pcm.shape
-    assert np.abs(pcm.astype(np.int32) - _q16(ref_pcm).astype(np.int32)
-                  ).max() <= 1
+    np.testing.assert_array_equal(pcm, _q16(ref_pcm))
 
 
 def _frames(wav, hop):
@@ -79,8 +80,7 @@ def _stream_ref(model, params, vq_state, wav, mode="roundtrip"):
 
 def test_engine_parity_staggered_streams(tiny, rng):
     """Three streams attach at different ticks, skip ticks and detach at
-    different times; each one's tokens equal its solo run, its PCM within
-    one int16 step."""
+    different times; each one's tokens and int16 PCM equal its solo run."""
     model, params, vq_state = tiny
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
@@ -113,6 +113,29 @@ def test_engine_parity_staggered_streams(tiny, rng):
         np.testing.assert_array_equal(np.stack(got[k]["tokens"], axis=1),
                                       ref_tok)
         _assert_pcm(np.concatenate(got[k]["pcm"]), ref_pcm)
+
+
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_frame_step_rows_do_not_depend_on_the_batch(tiny, part):
+    """A frame step at batch 4 gives each row bitwise what that row gives
+    alone, output and every cache tensor, over three frames."""
+    model, params, _ = tiny
+    fp = model.fold_params(params)[part]
+    layer = getattr(model.codec, part)
+    rng = np.random.default_rng(7)
+    shape = ((4, 1, model.hop_length) if part == "encoder"
+             else (4, layer.dimension, 1))
+    c4 = layer.init_cache(4)
+    c1 = [layer.init_cache(1) for _ in range(4)]
+    with torch.no_grad():
+        for _ in range(3):
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            y4, c4 = layer.step(fp, c4, x)
+            for r in range(4):
+                y1, c1[r] = layer.step(fp, c1[r], x[r:r + 1])
+                assert torch.equal(y4[r:r + 1], y1)
+                assert all(torch.equal(a[r:r + 1], b)
+                           for a, b in zip(c4, c1[r]))
 
 
 def test_int16_wire_matches_host_rounding():
