@@ -7,13 +7,18 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
 
   1. device: card name and power limit, TF32 off, build every kernel of
      the path from the checkout's sources (csrc/rvq.cu and
-     csrc/segment.cu, one nvcc per source, started together);
+     csrc/segment.cu, one nvcc per source, started together); ptxas's
+     register and spill report, failing on any spill in segment.cu;
   2. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the serving path gives it and more, then timed with
      CUDA events beside its plain version and its bound: the RVQ cascade
      (also at n_q = 32, K2's shape), and the decoder and encoder frame
-     kernels on the flagship at 1, 7, 16 and 128 streams over 3 frames,
-     output and every cache;
+     kernels on the flagship at 1, 3, 7, 16, 64 and 128 streams over 3
+     frames, output and every cache, each launched twice more on the same
+     inputs to check that it gives the same bits, and on two small models
+     of 6 and 10 channels (the kernels' scalar paths); at 16 and 128
+     streams a breakdown by phase kind, with the GEMM phases' TFLOP/s beside
+     torch.matmul (cuBLAS) on the same shapes;
   3. serving: the flagship speech model (configs/hilcodec_speech.yaml,
      seeded random weights, N(0,1) codebooks, folded) behind a 16-slot
      roundtrip SlotEngine and the TCP CodecServer on 127.0.0.1; several
@@ -29,17 +34,19 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      megakernel=False (tokens exact or f32 ties, PCM within PCM_TOL_LSB on
      the same tokens); the frame kernels' launch counts of this run must
      be one per frame;
-  6. bench: `python -m hilcodec_tpu_torch.bench 128 --seconds 1` run
-     in-process, plain and --megakernel in turns (plain, kernel, kernel,
-     plain), each JSON line logged.
+  6. bench: `python -m hilcodec_tpu_torch.bench S --seconds 1` run
+     in-process at S = 16, 64 and 128 streams, plain and --megakernel in
+     turns (plain, kernel, kernel, plain), each JSON line logged.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
 """
 
 import asyncio
+import dataclasses
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -56,16 +63,26 @@ CLIENT_FRAMES = 75            # 1 s at 24 kHz / hop 320
 SERVE_SLOTS = 16
 TIMED_TICKS = 100
 PATH_STREAMS = 128            # the frame-kernel path and the bench
-FRAME_BATCHES = (1, 7, 16, 128)
+# 3 and 64 cross the lowering's tile and split choices and leave ragged
+# tiles
+FRAME_BATCHES = (1, 3, 7, 16, 64, 128)
+BENCH_STREAMS = (16, 64, 128)
+# small models whose channel counts are not multiples of 4
+ODD_CHANNELS = (6, 10)
 # frame kernels vs their plain version: the largest |difference| of a
 # tensor (output or cache) over its largest |value| (at least 1). The
 # kernel sums up to 1536 products per 1x1 conv in another order than
 # cuBLAS and ATen, through ~30 chained layers; 5e-5 is ~400 f32 ulps of
 # the tensor's scale.
 FRAME_TOL = 5e-5
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, TF32
+# on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# TF32 products per f32-accurate product in the frame kernels' GEMMs
+# (3xTF32)
+TF32_PRODUCTS = 3
 # PCM: engine int16 output vs the solo float stream rounded on the host,
 # and the frame-kernel path vs the plain one. On the CPU the port is
 # bitwise batch-invariant (tests/test_torch_serve.py holds 0 steps), but on
@@ -132,6 +149,12 @@ def phase_device():
         for ln in report.splitlines():
             if "registers" in ln or "spill" in ln or "smem" in ln:
                 log(f"[device]   ptxas: {ln.strip()}")
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", report)
+        if src == "segment" and (not spills or any(
+                int(a) or int(b) for a, b in spills)):
+            raise AssertionError(f"csrc/segment.cu: ptxas reports spills "
+                                 f"(or no report): {spills}")
     log(f"[device] kernel build wall {time.perf_counter() - t0:.2f} s")
     return name, line
 
@@ -199,20 +222,25 @@ def phase_kernels(dev):
 
 
 def frame_bound_ms(mk, w, x, aux, caches):
-    """Least time for one frame step of `mk` on these inputs: the op list's
-    f32 operations over the f32 peak vs its bytes (input, aux, weights and
-    caches read once; output and caches written once) over the HBM rate.
-    Returns (ms, "operations"|"bytes", flops)."""
+    """Least time for one frame step of `mk` on these inputs, on two
+    engines: the larger of its operations over the peak and its bytes
+    (input, aux, weights and caches read once; output and caches written
+    once) over the HBM rate. "f32": every f32 operation on the CUDA cores;
+    "tc": the 1x1-conv products at TF32_PRODUCTS TF32 products each on the
+    tensor cores (the engine the kernel uses for them), the rest on the
+    CUDA cores. Returns ({"f32"|"tc": (ms, "operations"|"bytes")}, flops,
+    GEMM flops)."""
     from hilcodec_tpu_torch.ops import decoder_kernel as DK
     B = x.shape[0]
     t, c = (x.shape[1], 1) if x.ndim == 2 else (x.shape[1], x.shape[2])
-    flops = 0
+    flops = gemm = 0
     for op, (ti, ci, to, co) in zip(mk.ops, DK.op_shapes(mk.ops, t, c)):
         a = op.attrs
         if op.kind == "pw":
-            flops += 2 * to * ci * co
+            gemm += 2 * to * ci * co
         elif op.kind == "mix":
-            flops += 2 * to * a["f"] * co + to * co
+            gemm += 2 * to * a["f"] * co
+            flops += to * co
         elif op.kind in ("dw", "post", "dense1ch"):
             flops += 2 * to * (ci if op.kind == "post" else co) * a["k"]
         elif op.kind == "dws":
@@ -223,15 +251,21 @@ def frame_bound_ms(mk, w, x, aux, caches):
             flops += 3 * ti * ci
         elif op.kind != "res_begin" or a["pre_scale"] is not None:
             flops += ti * ci                 # act, scale, residual add
-    flops *= B
+    flops, gemm = flops * B, gemm * B
     t_out, c_out = DK.op_shapes(mk.ops, t, c)[-1][2:]
     floats = (x.numel() + sum(a.numel() for a in aux)
               + sum(v.numel() for lay in w.per_op if lay
                     for v in lay.values())
               + 2 * sum(cc.numel() for cc in caches) + B * t_out * c_out)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, 4.0 * floats / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    t_bytes = 4.0 * floats / PEAK_HBM_BYTES
+    bounds = {}
+    for engine, t_ops in (
+            ("f32", (gemm + flops) / PEAK_F32_FLOPS),
+            ("tc", gemm * TF32_PRODUCTS / PEAK_TF32_FLOPS
+             + flops / PEAK_F32_FLOPS)):
+        bounds[engine] = (max(t_ops, t_bytes) * 1e3,
+                          "operations" if t_ops >= t_bytes else "bytes")
+    return bounds, gemm + flops, gemm
 
 
 def frame_cases(model, params, B, gen):
@@ -245,10 +279,13 @@ def frame_cases(model, params, B, gen):
     dev = model.device
     dm = _decoder_megakernel(model.codec.decoder)
     em = _encoder_megakernel(model.codec.encoder)
-    books = torch.randn((8, 1024, 128), generator=gen).to(dev)
+    vq = model.vq
+    books = torch.randn((vq.num_quantizers, vq.codebook_size, vq.dim),
+                        generator=gen).to(dev)
 
     def dec_frame():
-        tok = torch.randint(0, 1024, (8, B, 1), generator=gen).to(dev)
+        tok = torch.randint(0, vq.codebook_size, (vq.num_quantizers, B, 1),
+                            generator=gen).to(dev)
         return rvq.dequantize(tok, books)          # time-major [B, 1, 128]
 
     def enc_frame():
@@ -268,16 +305,18 @@ def frame_cases(model, params, B, gen):
              em.init_cache(B, device=dev), enc_frame)]
 
 
-def phase_frame_kernels(model, params):
-    """The decoder and encoder frame kernels against their plain version on
-    the flagship, 3 frames with the caches threaded through, then timed."""
+def phase_frame_kernels(model, params, batches=FRAME_BATCHES, tag=""):
+    """The decoder and encoder frame kernels against their plain version,
+    3 frames with the caches threaded through, twice more on the last
+    frame's inputs (the same bits); on the flagship (no `tag`) timed at
+    SERVE_SLOTS and PATH_STREAMS streams."""
     import torch
     from hilcodec_tpu_torch.ops import decoder_kernel as DK
 
     gen = torch.Generator().manual_seed(SEED + 3)
     worst = {}
     timings = {}
-    for B in FRAME_BATCHES:
+    for B in batches:
         for name, mk, p, inputs, cache, frame in frame_cases(
                 model, params, B, gen):
             w = mk.weights(p)
@@ -296,28 +335,48 @@ def phase_frame_kernels(model, params):
                     scale = max(1.0, float(b.abs().max()))
                     abs_err, rel = max(abs_err, err), max(rel, err / scale)
                 cache = ref if ring is None else [ring] + ref
-            ok = rel <= FRAME_TOL
-            log(f"[kernel] {name} B={B} x3 frames: output and "
+            again = [mk.run(p, x, aux, layer_caches) for _ in range(2)]
+            same = all(torch.equal(a, b) for a, b in zip(
+                [again[0][0]] + again[0][1], [again[1][0]] + again[1][1]))
+            plan = mk.plan(w, B, x.shape[1], 1 if x.ndim == 2 else x.shape[2],
+                           x.device)
+            table = plan.phases.cpu().numpy().view(DK.PHASE_DTYPE)
+            gemm = table[np.isin(table["kind"], (DK.PW, DK.MIX))]
+            tiles = sorted({(int(a), int(b), int(c)) for a, b, c in zip(
+                gemm["bm"], gemm["bn"], gemm["splits"])})
+            ok = rel <= FRAME_TOL and same
+            log(f"[kernel] {name}{tag} B={B} x3 frames: output and "
                 f"{len(layer_caches)} caches max abs err {abs_err:.3g}, "
-                f"max err / scale {rel:.3g} (tolerance {FRAME_TOL}) -> "
-                f"{'ok' if ok else 'FAIL'}")
+                f"max err / scale {rel:.3g} (tolerance {FRAME_TOL}); two "
+                f"more launches on the same inputs "
+                f"{'bitwise equal' if same else 'DIFFER'}; GEMM tiles "
+                f"(bm x bn / splits) "
+                f"{tiles}"
+                f" -> {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at B={B}")
+                raise AssertionError(f"{name}{tag} disagrees with its plain "
+                                     f"version, or with itself, at B={B}")
             worst[name] = max(worst.get(name, 0.0), abs_err)
-            if B in (SERVE_SLOTS, PATH_STREAMS):
-                ms = cuda_ms(lambda: mk.run(p, x, aux, layer_caches),
-                             repeats=20)
+            if not tag and B in (SERVE_SLOTS, PATH_STREAMS):
+                step_ms = cuda_ms(lambda: mk.run(p, x, aux, layer_caches),
+                                  repeats=20)
                 plain_ms = cuda_ms(lambda: DK.run_plain(
                     mk.ops, w.per_op, x, aux, layer_caches), repeats=20)
-                bound_ms, bound_by, flops = frame_bound_ms(
+                bounds, flops, gemm_flops = frame_bound_ms(
                     mk, w, x, aux, layer_caches)
-                timings[(name, B)] = (ms, plain_ms, bound_ms, bound_by)
-                log(f"[kernel] {name} B={B}: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}; {flops / B / 1e6:.1f} MFLOP a stream); "
-                    f"no single PyTorch call computes a frame step")
-                phase_breakdown(name, mk, p, x, aux, layer_caches)
+                ms = phase_breakdown(name, mk, p, x, aux, layer_caches,
+                                     gemm_flops)
+                bound_ms, bound_by = bounds["tc"]
+                timings[(name, B)] = (ms, plain_ms, bounds)
+                log(f"[kernel] {name} B={B}: kernel {ms:.4f} ms (launches "
+                    f"back to back; {step_ms:.4f} ms through the step's "
+                    f"wrapper, which also packs the caches), "
+                    f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}; GEMMs on the tensor cores at "
+                    f"{TF32_PRODUCTS} TF32 products each) or "
+                    f"{bounds['f32'][0]:.4f} ms ({bounds['f32'][1]}; all on "
+                    f"the f32 CUDA cores); {flops / B / 1e6:.1f} MFLOP a "
+                    f"stream; no single PyTorch call computes a frame step")
     return worst, timings
 
 
@@ -325,41 +384,110 @@ PHASE_NAMES = ("ewise", "pw", "dw", "convt", "post", "dense1ch", "dws",
                "mix", "l2norm")
 
 
-def phase_breakdown(name, mk, p, x, aux, caches):
+def phase_breakdown(name, mk, p, x, aux, caches, gemm_flops):
     """Where a frame kernel's time goes, by phase kind: the kernel is timed
     on every prefix of its phase table (the first k phases), and each
     phase is charged the difference between consecutive prefixes (its work
-    and the grid barrier before it)."""
+    and the grid barrier before it). The GEMM phases are set beside
+    torch.matmul (cuBLAS, f32) on the same shapes and the depthwise family
+    beside its bytes. Returns the whole table's time (ms per launch)."""
     import torch
     from hilcodec_tpu_torch.ops import decoder_kernel as DK
     B = x.shape[0]
     w = mk.weights(p)
     t, c = (x.shape[1], 1) if x.ndim == 2 else (x.shape[1], x.shape[2])
     plan = mk.plan(w, B, t, c, x.device)
-    kinds = plan.phases.cpu().numpy().view(DK.PHASE_DTYPE)["kind"]
+    table = plan.phases.cpu().numpy().view(DK.PHASE_DTYPE)
     t_out, c_out = DK.op_shapes(mk.ops, t, c)[-1][2:]
     y = torch.empty((B, t_out, c_out), device=x.device)
     cache_in = mk.pack(caches, B)
     cache_out = torch.empty_like(cache_in)
     x, aux = x.contiguous(), [a.contiguous() for a in aux]
+
+    def launch(k):
+        sub = dataclasses.replace(plan, n_phases=k)
+        return lambda: DK.launch(mk.kernel, {mk.kernel: 0}, sub, w.flat, x,
+                                 y, aux, cache_in, cache_out, B)
+
     prev, by_kind = 0.0, {}
     for k in range(1, plan.n_phases + 1):
-        sub = DK.Plan(plan.phases, k, plan.act_max)
-        ms = cuda_ms(lambda: DK.launch(mk.kernel, {mk.kernel: 0}, sub,
-                                       w.flat, x, y, aux, cache_in,
-                                       cache_out, B), calls=5, repeats=5)
-        kind = PHASE_NAMES[int(kinds[k - 1])]
+        ms = cuda_ms(launch(k), calls=5, repeats=5)
+        kind = PHASE_NAMES[int(table["kind"][k - 1])]
         n, tot = by_kind.get(kind, (0, 0.0))
         by_kind[kind] = (n + 1, tot + ms - prev)
         prev = ms
+    total = cuda_ms(launch(plan.n_phases), repeats=20)
     log(f"[breakdown] {name} B={B}, {plan.n_phases} phases, "
-        f"{prev:.4f} ms: " + ", ".join(
+        f"{total:.4f} ms: " + ", ".join(
             f"{kind} x{n} {tot:.4f} ms"
             for kind, (n, tot) in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1][1])))
+    # the GEMM phases against cuBLAS on the same (M, K, N), f32
+    shapes = {}
+    for ph in table[np.isin(table["kind"], (DK.PW, DK.MIX))]:
+        mkn = (B * int(ph["t_in"]), int(ph["c_in"]), int(ph["c_out"]))
+        shapes[mkn] = shapes.get(mkn, 0) + 1
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    cublas = 0.0
+    for (M, K, N), n in shapes.items():
+        a = torch.randn((M, K), generator=gen, device=x.device)
+        b = torch.randn((K, N), generator=gen, device=x.device)
+        cublas += n * cuda_ms(lambda: torch.matmul(a, b), calls=10,
+                              repeats=5)
+    gemm_ms = sum(by_kind.get(k, (0, 0.0))[1] for k in ("pw", "mix"))
+    # the depthwise family's bytes: input, old cache, weights read once;
+    # output and new cache written once
+    dw_bytes = 0
+    for ph in table[np.isin(table["kind"], (DK.DW, DK.CONVT, DK.POST,
+                                             DK.DWS))]:
+        ci, co, clen = int(ph["c_in"]), int(ph["c_out"]), int(ph["cache_len"])
+        taps = int(ph["k"]) + (int(ph["bias"]) >= 0)
+        dw_bytes += 4 * (B * (int(ph["t_in"]) * ci + 2 * clen * ci
+                              + int(ph["t_out"]) * co
+                              + (int(ph["res"]) >= 0) * int(ph["t_out"]) * co)
+                         + taps * ci)
+    dw_ms = sum(by_kind.get(k, (0, 0.0))[1]
+                for k in ("dw", "convt", "post", "dws"))
+    log(f"[breakdown] {name} B={B}: GEMM phases {gemm_ms:.4f} ms, "
+        f"{gemm_flops / 1e9:.3f} GFLOP at "
+        f"{gemm_flops / max(gemm_ms, 1e-9) / 1e9:.1f} TFLOP/s; "
+        f"torch.matmul (cuBLAS, f32) on the same {sum(shapes.values())} "
+        f"shapes {cublas:.4f} ms, {gemm_flops / cublas / 1e9:.1f} TFLOP/s; "
+        f"depthwise family {dw_ms:.4f} ms for {dw_bytes / 1e6:.2f} MB, "
+        f"{dw_bytes / max(dw_ms, 1e-9) / 1e6:.0f} GB/s")
+    return total
 
 
 # --------------------------------------------------------------- phase 3
+
+def build_small(channels):
+    """A two-stage HILCodec of `channels` channels (vq dim 14) on the card
+    with seeded folded params (zero-init scales set nonzero): with channel
+    counts that are not multiples of 4, the frame kernels take their scalar
+    copy, epilogue and depthwise paths."""
+    import torch
+    from hilcodec_tpu_torch.models.codec import CodecModel
+    from hilcodec_tpu_torch.models.hilcodec import HILCodec
+    from hilcodec_tpu_torch.ops.rvq import ResidualVQ
+    from hilcodec_tpu_torch.utils import params as P
+
+    model = CodecModel(
+        HILCodec(channels_enc=channels, channels_dec=channels,
+                 n_residual_enc=2, n_residual_dec=2, strides=(4, 2),
+                 n_fft_base=16, vq_dim=14, res_scale_enc=0.577,
+                 res_scale_dec=0.577),
+        ResidualVQ(dim=14, codebook_size=32, num_quantizers=3,
+                   kmeans_init=False), torch.device("cuda"))
+    gen = torch.Generator().manual_seed(SEED + channels)
+    params, vq_state = model.init(gen)
+    flat = P.flatten(params)
+    for k, v in flat.items():
+        if k.endswith("scale_param"):
+            flat[k] = torch.rand(v.shape, generator=gen) + 0.5
+    params, _ = model.to_device(model.fold_params(P.unflatten(flat)),
+                                vq_state)
+    return model, params
+
 
 def build_flagship(device):
     """Flagship model, seeded folded params (zero-init scales set nonzero)
@@ -635,13 +763,15 @@ def phase_frame_path(model, params, vq_state):
 # --------------------------------------------------------------- phase 6
 
 def phase_bench():
-    """The bench entry at 128 streams and 1 s of audio, plain and with the
-    frame kernels in turns, in this process."""
+    """The bench entry at 16, 64 and 128 streams and 1 s of audio, plain and
+    with the frame kernels in turns, in this process."""
     from hilcodec_tpu_torch import bench
-    base = [str(PATH_STREAMS), "--seconds", "1"]
-    for extra in ([], ["--megakernel"], ["--megakernel"], []):
-        log(f"[bench] python -m hilcodec_tpu_torch.bench "
-            f"{' '.join(base + extra)}: {json.dumps(bench.run(base + extra))}")
+    for streams in BENCH_STREAMS:
+        base = [str(streams), "--seconds", "1"]
+        for extra in ([], ["--megakernel"], ["--megakernel"], []):
+            log(f"[bench] python -m hilcodec_tpu_torch.bench "
+                f"{' '.join(base + extra)}: "
+                f"{json.dumps(bench.run(base + extra))}")
 
 
 def main() -> int:
@@ -659,6 +789,9 @@ def main() -> int:
     max_err, timings = phase_kernels(torch.device("cuda"))
     model, params, vq_state, sr = build_flagship("cuda")
     frame_err, frame_timings = phase_frame_kernels(model, params)
+    for ch in ODD_CHANNELS:
+        phase_frame_kernels(*build_small(ch), batches=(3,),
+                            tag=f" (channels {ch})")
     launches = phase_serve(model, params, vq_state, sr)
     phase_timings(model, params, vq_state, line)
     frame_launches = phase_frame_path(model, params, vq_state)
@@ -678,14 +811,17 @@ def main() -> int:
                            "hilcodec_tpu/ops/pallas_decoder.py:490"),
                           (encoder_kernel,
                            "hilcodec_tpu/ops/pallas_encoder.py:234")):
-        ms, plain_ms, bound_ms, bound_by = frame_timings[(mod.KERNEL,
-                                                          PATH_STREAMS)]
+        # the bound of the engine the kernel runs its GEMMs on (tensor
+        # cores), and beside it the bound with every operation on the f32
+        # CUDA cores, the one PR 2's kernel was held to
+        ms, plain_ms, bounds = frame_timings[(mod.KERNEL, PATH_STREAMS)]
         kernels.append({
             "name": mod.KERNEL, "route": "cuda", "source": mod.SOURCE,
             "replaces": replaces, "launches": frame_launches[mod.KERNEL],
             "max_abs_err": frame_err[mod.KERNEL], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "plain_ms": plain_ms, "bound_ms": bounds["tc"][0],
+            "bound_by": bounds["tc"][1], "bound_f32_ms": bounds["f32"][0],
+            "bound_f32_by": bounds["f32"][1], "library_ms": None})
     print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,10 +51,12 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Tuple[Path, float, str]:
     """Compile `csrc/<name>.cu` unless this exact source is built already.
 
-    Returns (library path, build seconds, nvcc's ptxas report)."""
+    Returns (library path, build seconds, nvcc's ptxas report; the report
+    is kept beside the library, so a cached build returns it too)."""
     out = library_path(name)
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
@@ -64,6 +66,7 @@ def build(name: str) -> Tuple[Path, float, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc "
                            f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    report.write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees old or new
     return out, dt, proc.stderr
 

@@ -362,10 +362,89 @@ PHASE_DTYPE = np.dtype([
     ("c_out", "<i4"), ("k", "<i4"), ("d", "<i4"), ("w", "<i4"),
     ("w2", "<i4"), ("bias", "<i4"), ("cache", "<i4"), ("cache_len", "<i4"),
     ("n_pre", "<i4"), ("pre_kind", "<i4", (MAX_PRE,)),
-    ("pre_scale", "<f4", (MAX_PRE,)), ("eps", "<f4"), ("gain", "<f4")])
-assert PHASE_DTYPE.itemsize == 108
+    ("pre_scale", "<f4", (MAX_PRE,)), ("eps", "<f4"), ("gain", "<f4"),
+    ("bm", "<i4"), ("bn", "<i4"), ("splits", "<i4"), ("kslice", "<i4")])
+assert PHASE_DTYPE.itemsize == 124
 _CONV_KIND = {"pw": PW, "dw": DW, "convt": CONVT, "post": POST,
               "dense1ch": DENSE1CH, "dws": DWS}
+
+# ---------------------------------------------------------------------------
+# GEMM tiling: the tile shape and K-split of each 1x1-conv phase
+# ---------------------------------------------------------------------------
+
+BK = 32            # the kernel's k-block (kBK)
+WARPS = 8          # warps of a block, all computing a tile
+# the kernel's tiles (segment.cu SEGMENT_TILES): (BM, BN) -> the (WM, WN)
+# part of it that one warp computes; the warps left over split each
+# k-block's k8 steps
+TILES = {(16, 64): (16, 32), (32, 32): (32, 16), (32, 64): (32, 32),
+         (32, 96): (16, 48), (64, 64): (32, 32), (64, 96): (32, 24),
+         (64, 128): (32, 32), (128, 64): (32, 32)}
+MAX_SPLITS = 64
+# Cost model of one work item (a tile's K-slice) on one block, in SM
+# cycles; the two blocks of an SM share its L2 bandwidth and tensor cores.
+# Coarse H100 figures: they rank the choices, they predict no time.
+_ITEM_CYCLES = 2000.0       # pipeline fill, epilogue and barriers of an item
+_L2_BYTES_PER_CYCLE = 16.0  # L2 -> shared memory, per block
+_MMA_FLOPS_PER_CYCLE = 512.0  # TF32 tensor-core operations, per block
+_ISSUE_PER_CYCLE = 2.0      # warp instructions, per block
+_REDUCE_CYCLES = 1000.0     # fence and counter of a split tile
+
+
+def _kblock_cycles(bm: int, bn: int) -> float:
+    """One k-block of a bm x bn tile: the larger of its loads, its 3xTF32
+    products and its instruction issue (per k8 step and warp: a load and
+    four instructions of hi/lo split per fragment element, three mma.sync
+    per fragment pair; each warp takes 1 / k_warps of the k8 steps)."""
+    wm, wn = TILES[(bm, bn)]
+    mt, nt = wm // 16, wn // 8
+    k_warps = WARPS // ((bm // wm) * (bn // wn))
+    loads = (bm + bn) * BK * 4 / _L2_BYTES_PER_CYCLE
+    mma = 3 * 2 * bm * bn * BK / _MMA_FLOPS_PER_CYCLE
+    issue = WARPS * (BK // 8 // k_warps) * (20 * mt + 10 * nt + 3 * mt * nt) \
+        / _ISSUE_PER_CYCLE
+    return max(loads, mma, issue)
+
+
+def gemm_tiling(M: int, N: int, K: int, grid: int
+                ) -> Tuple[int, int, int, int]:
+    """(bm, bn, splits, kslice) for an [M, K] x [K, N] phase on a grid of
+    `grid` blocks: the tile and K-split whose items (tiles x splits) take
+    the fewest estimated cycles over the grid. Slice s covers K columns
+    [s * kslice, min(K, (s + 1) * kslice)); kslice is a multiple of BK and
+    every slice is non-empty."""
+    kblocks = -(-K // BK)
+    best = None
+    for bm, bn in TILES:
+        tiles = -(-M // bm) * -(-N // bn)
+        per_kb = _kblock_cycles(bm, bn)
+        for splits in range(1, min(kblocks, MAX_SPLITS) + 1):
+            kc = -(-kblocks // splits)
+            if -(-kblocks // kc) != splits:
+                continue           # the same slices as fewer splits
+            item = _ITEM_CYCLES + kc * per_kb
+            if splits > 1:
+                item += (_REDUCE_CYCLES + bm * bn * 4 * (splits + 1)
+                         / _L2_BYTES_PER_CYCLE)
+            cost = -(-tiles * splits // grid) * item
+            key = (cost, splits, -bm * bn)
+            if best is None or key < best[0]:
+                best = (key, (bm, bn, splits, kc * BK))
+    return best[1]
+
+
+def split_workspace(table: np.ndarray, B: int) -> Tuple[int, int]:
+    """(floats of the split-K workspace, counters) that the GEMM phases of
+    `table` need at B streams: a bm x bn partial per item of a split phase,
+    a counter per tile."""
+    ws, counters = 0, 0
+    for p in table:
+        if int(p["kind"]) in (PW, MIX) and int(p["splits"]) > 1:
+            bm, bn, s = int(p["bm"]), int(p["bn"]), int(p["splits"])
+            tiles = -(-B * int(p["t_in"]) // bm) * -(-int(p["c_out"]) // bn)
+            ws = max(ws, tiles * s * bm * bn)
+            counters = max(counters, tiles)
+    return ws, counters
 
 
 def cache_layout(cache_shapes: Sequence[Tuple[int, int]], B: int
@@ -381,15 +460,17 @@ def cache_layout(cache_shapes: Sequence[Tuple[int, int]], B: int
 
 def build_phases(ops: Sequence[Op], offsets: Sequence[Optional[Dict]],
                  cache_shapes: Sequence[Tuple[int, int]], B: int, t: int,
-                 c: int) -> Tuple[np.ndarray, int]:
+                 c: int, grid: int) -> Tuple[np.ndarray, int]:
     """Lower the op list to the kernel's phase table for B streams of input
-    (t, c) per stream. Returns (phases, the largest activation of a stream
-    in floats, which sizes each of the three scratch buffers).
+    (t, c) per stream on a grid of `grid` blocks. Returns (phases, the
+    largest activation of a stream in floats, which sizes each of the three
+    scratch buffers).
 
     Buffers: -1 is the step's input (as a source) or output (the last
     phase's destination), 0..2 scratch. Each phase writes a buffer that is
     neither its source nor the live residual, except where an output
-    element reads only its own position there (a residual add, the mix)."""
+    element reads only its own position there (a residual add, the mix).
+    Each GEMM phase (pw, mix) gets its tile and K-split (`gemm_tiling`)."""
     cache_offs, _ = cache_layout(cache_shapes, B)
     phases: List[Dict[str, Any]] = []
     pending: List[Tuple[int, float]] = []
@@ -407,8 +488,11 @@ def build_phases(ops: Sequence[Op], offsets: Sequence[Optional[Dict]],
         ph = dict(kind=kind, src=src, dst=dst, res=-1, aux=-1, t_in=t_in,
                   t_out=t_out, c_in=c_in, c_out=c_out, k=0, d=0, w=-1, w2=-1,
                   bias=-1, cache=-1, cache_len=0, pre=list(pending), eps=0.0,
-                  gain=1.0)
+                  gain=1.0, bm=0, bn=0, splits=0, kslice=0)
         ph.update(kw)
+        if kind in (PW, MIX):
+            ph.update(zip(("bm", "bn", "splits", "kslice"),
+                          gemm_tiling(B * t_in, c_out, c_in, grid)))
         pending.clear()
         phases.append(ph)
         act_max = max(act_max, t_out * c_out)
@@ -531,7 +615,7 @@ def _library(device: torch.device) -> Tuple[ctypes.CDLL, int]:
             p = ctypes.c_void_p
             lib.segment_run.argtypes = [
                 p, ctypes.c_int, p, p, p, p, p, p, p, p, p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, p]
+                p, p, ctypes.c_int, ctypes.c_int, p]
             lib.segment_run.restype = ctypes.c_int
             lib.segment_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.segment_grid.restype = ctypes.c_int
@@ -548,10 +632,32 @@ def _library(device: torch.device) -> Tuple[ctypes.CDLL, int]:
 
 @dataclasses.dataclass
 class Plan:
-    """The phase table of one (batch, frames, device), on the device."""
+    """The phase table of one (batch, frames, device, stream) on the device,
+    with the buffers its launches share: three scratch buffers for the
+    activations (rows 16-byte aligned), the split-K workspace and the
+    per-tile counters (zero, and left zero by every launch). Launches of one
+    plan run one after another on its stream."""
     phases: torch.Tensor
     n_phases: int
     act_max: int
+    bufs: torch.Tensor
+    ws: torch.Tensor
+    counters: torch.Tensor
+
+
+def make_plan(table: np.ndarray, act_max: int, B: int,
+              device: torch.device) -> Plan:
+    """Upload `table` and allocate the buffers its launches need."""
+    if B * act_max >= 2 ** 31:
+        raise ValueError("frame kernel: an activation of 2^31 floats or "
+                         "more (32-bit indices)")
+    ws, counters = split_workspace(table, B)
+    stride = -(-max(B * act_max, 1) // 64) * 64
+    return Plan(
+        torch.from_numpy(table.view(np.int32)).to(device), len(table),
+        act_max, torch.empty((3, stride), dtype=torch.float32, device=device),
+        torch.empty(max(ws, 1), dtype=torch.float32, device=device),
+        torch.zeros(max(counters, 1), dtype=torch.int32, device=device))
 
 
 def _check(t: torch.Tensor, device: torch.device, name: str) -> None:
@@ -565,7 +671,8 @@ def launch(kernel: str, counter: Dict[str, int], plan: Plan,
            weights: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
            aux: Sequence[torch.Tensor], cache_in: torch.Tensor,
            cache_out: torch.Tensor, B: int) -> None:
-    """Launch the segment kernel for one frame step on the current stream."""
+    """Launch the segment kernel for one frame step on the current stream;
+    raises if the launch is refused."""
     device = x.device
     for name, t in (("x", x), ("y", y), ("weights", weights),
                     ("cache_in", cache_in), ("cache_out", cache_out)):
@@ -576,17 +683,17 @@ def launch(kernel: str, counter: Dict[str, int], plan: Plan,
         raise ValueError(f"frame kernel takes at most {MAX_AUX} aux inputs")
     if cache_in.data_ptr() == cache_out.data_ptr() and cache_in.numel():
         raise ValueError("frame kernel: cache_in and cache_out must differ")
-    bufs = torch.empty((3, max(B * plan.act_max, 1)), dtype=torch.float32,
-                       device=device)
     aux_ptrs = (ctypes.c_void_p * MAX_AUX)(
         *[t.data_ptr() for t in aux], *([None] * (MAX_AUX - len(aux))))
+    bufs = plan.bufs
     with torch.cuda.device(device):
         lib, blocks = _library(device)
         rc = lib.segment_run(
             plan.phases.data_ptr(), plan.n_phases, x.data_ptr(),
             y.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
             bufs[2].data_ptr(), cache_in.data_ptr(), cache_out.data_ptr(),
-            weights.data_ptr(), aux_ptrs, len(aux), B, blocks,
+            weights.data_ptr(), aux_ptrs, len(aux), plan.ws.data_ptr(),
+            plan.counters.data_ptr(), B, blocks,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
@@ -682,15 +789,19 @@ class FrameKernel:
 
     def plan(self, w: Weights, B: int, t: int, c: int,
              device: torch.device) -> Plan:
-        """The phase table for B streams of input (t, c), made once."""
-        key = (B, t, c, device)
+        """The phase table and buffers for B streams of input (t, c) on the
+        current stream of `device`, made once; tiled for the device's
+        grid."""
+        stream = torch.cuda.current_stream(device).cuda_stream
+        key = (B, t, c, device, stream)
         with self._lock:
             plan = self._plans.get(key)
         if plan is None:
+            with torch.cuda.device(device):
+                _, grid = _library(device)
             table, act_max = build_phases(self.ops, w.offsets,
-                                          self.cache_shapes, B, t, c)
-            phases = torch.from_numpy(table.view(np.int32)).to(device)
-            plan = Plan(phases, len(table), act_max)
+                                          self.cache_shapes, B, t, c, grid)
+            plan = make_plan(table, act_max, B, device)
             with self._lock:
                 self._plans[key] = plan
         return plan

@@ -210,7 +210,15 @@ def _emulate(table, B, x, aux, cache_in, weights):
         elif kind in (DK.PW, DK.MIX):
             a = (aux[int(p["aux"])].reshape(-1, ci) if kind == DK.MIX
                  else _pre(p, data[:B * ti * ci].view(-1, ci)))
-            out = a @ wt("w", ci, co) + bias
+            w = wt("w", ci, co)
+            splits, ks = int(p["splits"]), int(p["kslice"])
+            assert (int(p["bm"]), int(p["bn"])) in DK.TILES, p
+            assert splits >= 1 and (splits - 1) * ks < ci <= splits * ks, p
+            out = None
+            for s in range(splits):    # partial products, in slice order
+                part = a[:, s * ks:(s + 1) * ks] @ w[s * ks:(s + 1) * ks]
+                out = part if out is None else out + part
+            out = out + bias
         elif kind == DK.DW:
             w = wt("w", k, ci)
             out = sum(xc[:, j * d:j * d + to] * w[j] for j in range(k)) + bias
@@ -246,12 +254,28 @@ def _emulate(table, B, x, aux, cache_in, weights):
     return y, cache_out
 
 
+GRID = 264   # an H100's persistent grid: 132 SMs x 2 blocks
+
+
 @pytest.mark.parametrize("part,batch", [("decoder", 1), ("decoder", 3),
                                         ("encoder", 1), ("encoder", 3)])
 def test_phase_table_computes_the_op_list(setup, part, batch):
     """The kernel's phase table (transforms folded into loads, residuals
     into epilogues, three scratch buffers) computes what the plain version
     computes, frame after frame, every cache region written."""
+    _check_phase_table(setup, part, batch)
+
+
+@pytest.mark.parametrize("part", ["decoder", "encoder"])
+def test_phase_table_with_split_k_computes_the_op_list(setup, part):
+    """The same with every GEMM phase split into K-slices of 8 (the tiny
+    config's K fits one k-block, so the lowering itself never splits it):
+    the partial products summed in slice order, as the kernel's reducer
+    sums them, still give the plain version's step."""
+    _check_phase_table(setup, part, 3, kslice=8)
+
+
+def _check_phase_table(setup, part, batch, kslice=None):
     _, tm, _, ft = setup
     layer = getattr(tm.codec, part)
     mk = (DK.DecoderMegakernel(layer) if part == "decoder"
@@ -274,7 +298,13 @@ def test_phase_table_computes_the_op_list(setup, part, batch):
                    for tt, f in ((8, 9), (4, 17), (1, 33))]
             cin = caches[1:]
         table, _ = DK.build_phases(mk.ops, w.offsets, mk.cache_shapes, batch,
-                                   x.shape[1], 1 if x.ndim == 2 else 16)
+                                   x.shape[1], 1 if x.ndim == 2 else 16,
+                                   GRID)
+        if kslice is not None:
+            gemm = np.isin(table["kind"], (DK.PW, DK.MIX))
+            table["kslice"][gemm] = kslice
+            table["splits"][gemm] = -(-table["c_in"][gemm] // kslice)
+            assert (table["splits"][gemm] > 1).any()
         y_ref, c_ref = DK.run_plain(mk.ops, w.per_op, x, aux, cin)
         y, c_flat = _emulate(table, batch, x, aux, mk.pack(cin, batch),
                              w.flat)
