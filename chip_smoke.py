@@ -8,11 +8,16 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
   1. device: card name and power limit, TF32 off, build every kernel of
      the path from the checkout's sources (csrc/rvq.cu and
      csrc/segment.cu, one nvcc per source, started together); ptxas's
-     register and spill report, failing on any spill in segment.cu;
+     register and spill report, failing on any spill in either;
   2. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the serving path gives it and more, then timed with
      CUDA events beside its plain version and its bound: the RVQ cascade
-     (also at n_q = 32, K2's shape), and the decoder and encoder frame
+     (its plans, clusters of 16 CTAs at few rows and of 8 at many; M up
+     to 1000; ragged K and K below the cluster size at C = 64; duplicate
+     codewords in two CTAs' slices, first index kept; two more launches
+     bitwise equal; timed at n = 1, 2, 4, 8 for the per-stage cost and at
+     n_q = 32, K2's shape),
+     and the decoder and encoder frame
      kernels on the flagship at 1, 3, 7, 16, 64 and 128 streams over 3
      frames, output and every cache, each launched twice more on the same
      inputs to check that it gives the same bits, and on two small models
@@ -32,8 +37,8 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
   5. frame-kernel path: encode_stream / decode_stream(megakernel=True) on
      the flagship at 128 streams x 75 frames of seeded audio, held against
      megakernel=False (tokens exact or f32 ties, PCM within PCM_TOL_LSB on
-     the same tokens); the frame kernels' launch counts of this run must
-     be one per frame;
+     the same tokens); the launch counts of this run of the frame kernels
+     and the RVQ cascade must be one per frame;
   6. bench: `python -m hilcodec_tpu_torch.bench S --seconds 1` run
      in-process at S = 16, 64 and 128 streams, plain and --megakernel in
      turns (plain, kernel, kernel, plain), each JSON line logged.
@@ -125,6 +130,50 @@ def cuda_ms(fn, calls: int = 10, repeats: int = 50) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 20, repeats: int = 20) -> float:
+    """Device milliseconds per call of `fn` with the host's launch cost out
+    of the way: `calls` calls captured in one CUDA graph, replayed between
+    CUDA events, the median over `repeats` replays. For a kernel shorter
+    than its wrapper's host time, which cuda_ms would measure instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host milliseconds per call of `fn` (enqueue only), after a warm-up;
+    the device is synchronised before and after, not in between."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
 # --------------------------------------------------------------- phase 1
 
 def phase_device():
@@ -151,9 +200,8 @@ def phase_device():
                 log(f"[device]   ptxas: {ln.strip()}")
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
                             r"loads", report)
-        if src == "segment" and (not spills or any(
-                int(a) or int(b) for a, b in spills)):
-            raise AssertionError(f"csrc/segment.cu: ptxas reports spills "
+        if not spills or any(int(a) or int(b) for a, b in spills):
+            raise AssertionError(f"csrc/{src}.cu: ptxas reports spills "
                                  f"(or no report): {spills}")
     log(f"[device] kernel build wall {time.perf_counter() - t0:.2f} s")
     return name, line
@@ -173,51 +221,118 @@ def rvq_bound_ms(M: int, n: int, K: int, C: int):
 
 
 def phase_kernels(dev):
+    """The RVQ cascade against its plain version at every case below, each
+    case launched twice more on the same inputs (the same bits), with the
+    plan its wrapper chose (clusters of 16 CTAs up to 56 rows on an H100,
+    of 8 beyond: both arise); then timed: n = 1, 2, 4, 8 at 16 and 128
+    rows (the per-stage slope and the fixed cost), and beside its plain
+    version and its bound at n = 8 and at K2's n_q = 32."""
     import torch
     from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+
+    def plan_line(M, K, C, n):
+        plan, held = rvq_kernel.device_plan(dev, M, K, C, n)
+        return (f"cluster G={plan.cluster}, rows TM={plan.rows}, chunk "
+                f"{plan.codes} codewords, ring R={plan.ring}, slice "
+                f"{plan.slice} codewords x {plan.chunks} chunk(s), "
+                f"{plan.tiles} cluster(s) = {plan.tiles * plan.cluster} "
+                f"CTAs, {plan.smem} B shared memory a CTA; max active "
+                f"clusters " + ", ".join(
+                    f"{h} of G={g} x TM={r}" for (g, r), h in held.items()))
 
     gen = torch.Generator().manual_seed(SEED + 1)
     books8 = torch.randn((8, 1024, 128), generator=gen).to(dev)
     books32 = torch.randn((32, 1024, 128), generator=gen).to(dev)
+    # ragged K, and K < G (CTAs with empty slices), at C = 64
+    books_k1000 = torch.randn((3, 1000, 64), generator=gen).to(dev)
+    books_k16 = torch.randn((3, 16, 64), generator=gen).to(dev)
+    # codewords 100 and 900 of stage 0 equal, in different CTAs' slices
+    dup = torch.randn((2, 1024, 128), generator=gen)
+    dup[0, 900] = dup[0, 100]
+    dup = dup.to(dev)
     cases = [(books8, M, n) for M in (1, 7, 16, 128, 1000) for n in (8, 3)]
     cases += [(books32, M, 32) for M in (7, 128)]
+    cases += [(b, M, 3) for b in (books_k1000, books_k16)
+              for M in (7, 128, 1000)]
+    cases += [(dup, M, 2) for M in (16, 64)]
+
+    for M, n in ((SERVE_SLOTS, 8), (128, 8), (1000, 8), (128, 32)):
+        log(f"[kernel] rvq_cascade plan M={M} n={n} K=1024 C=128: "
+            + plan_line(M, 1024, 128, n))
+
     max_err = 0.0
     failed = []
     for books, M, n in cases:
+        n_q, K, C = books.shape
         # unit-norm-scaled latents like the encoder's l2norm output
-        x = torch.randn((1, M, 128), generator=gen).to(dev)
-        x = x / x.norm(dim=-1, keepdim=True) * 128 ** 0.5
-        got = rvq_kernel.quantize_cuda(x, books, n)
-        torch.cuda.synchronize()
+        x = torch.randn((1, M, C), generator=gen)
+        x = x / x.norm(dim=-1, keepdim=True) * C ** 0.5
+        if books is dup:
+            x[0, ::4] = dup[0, 100].cpu() + 0.01 * torch.randn(
+                (M // 4, C), generator=gen)
+        x = x.to(dev)
         ref = rvq.quantize(x, books, n)
+        got = rvq_kernel.quantize_cuda(x, books, n)
+        again = [rvq_kernel.quantize_cuda(x, books, n) for _ in range(2)]
+        torch.cuda.synchronize()
+        plan, _ = rvq_kernel.device_plan(dev, M, K, C, n)
+        same = all(torch.equal(got, a) for a in again)
         rep = rvq.token_parity_report(got, ref, x, books)
         err = float((rvq.dequantize(got, books)
                      - rvq.dequantize(ref, books)).abs().max())
         max_err = max(max_err, err)
-        log(f"[kernel] rvq_cascade M={M} n={n} n_q={books.shape[0]} "
-            f"K=1024 C=128: mismatches {rep['mismatches']} "
-            f"(ties {rep['ties']}, not ties {rep['not_ties']}), "
-            f"dequantized max abs err {err:.3g} "
-            f"-> {'ok' if rep['ok'] else 'FAIL'}")
-        if not rep["ok"] or tuple(got.shape) != (n, 1, M):
-            failed.append((M, n, books.shape[0]))
+        ok = rep["ok"] and same and tuple(got.shape) == (n, 1, M)
+        what = ""
+        if books is dup:
+            first = bool((got[0, 0, ::4] == 100).all())
+            ok = ok and first and rep["mismatches"] == 0
+            what = (f"; duplicate codewords 100 = 900 in two slices: "
+                    f"first index {'kept' if first else 'LOST'}")
+        log(f"[kernel] rvq_cascade G={plan.cluster} TM={plan.rows} M={M} "
+            f"n={n} n_q={n_q} K={K} C={C}: mismatches {rep['mismatches']} "
+            f"(ties {rep['ties']}, not ties {rep['not_ties']}), dequantized "
+            f"max abs err {err:.3g}; two more launches "
+            f"{'bitwise equal' if same else 'DIFFER'}{what} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((M, n, n_q, K, C))
     if failed:
         raise AssertionError(f"rvq_cascade disagrees with its plain "
-                             f"version at {failed}")
+                             f"version, or with itself, at {failed}")
+
+    # device time through a CUDA graph: the wrapper's host time per call
+    # (host_ms) is longer than the kernel, so back-to-back launches would
+    # time the host
+    for M in (SERVE_SLOTS, 128):
+        x = torch.randn((1, M, 128), generator=gen).to(dev)
+        per_n = {n: graph_ms(lambda: rvq_kernel.quantize_cuda(
+            x, books8, n)) for n in (1, 2, 4, 8)}
+        slope = (per_n[8] - per_n[1]) / 7
+        G = rvq_kernel.device_plan(dev, M, 1024, 128, 8)[0].cluster
+        log(f"[kernel] rvq_cascade G={G} M={M} K=1024 C=128 by stages: "
+            + ", ".join(f"n={n} {ms * 1e3:.2f} us"
+                        for n, ms in per_n.items())
+            + f"; {slope * 1e3:.2f} us a stage, "
+            f"{(per_n[1] - slope) * 1e3:.2f} us fixed")
 
     timings = {}
     for books, n in ((books8, 8), (books32, 32)):
         for M in (SERVE_SLOTS, 128):
             x = torch.randn((1, M, 128), generator=gen).to(dev)
-            ms = cuda_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
+            ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
+            eager_ms = cuda_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
+            enqueue_ms = host_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
             plain_ms = cuda_ms(lambda: rvq.quantize(x, books, n))
             bound_ms, bound_by = rvq_bound_ms(M, n, 1024, 128)
+            G = rvq_kernel.device_plan(dev, M, 1024, 128, n)[0].cluster
             timings[(M, n)] = (ms, plain_ms, bound_ms, bound_by)
             log(f"[kernel] rvq_cascade M={M} n={n} K=1024 C=128: kernel "
-                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
-                f"{bound_ms * 1e3:.2f} us ({bound_by}); no single PyTorch "
-                f"call computes the cascade, so there is no library "
-                f"yardstick")
+                f"{ms * 1e3:.2f} us (G={G}; CUDA graph); through the "
+                f"wrapper back to back {eager_ms * 1e3:.2f} us, its host "
+                f"time {enqueue_ms * 1e3:.2f} us a call; plain "
+                f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+                f"({bound_by}); no single PyTorch call computes the "
+                f"cascade, so there is no library yardstick")
     return max_err, timings
 
 
@@ -700,7 +815,8 @@ def profile_ticks(engine, slots, p50_s, rng, ticks=10):
 
 def phase_frame_path(model, params, vq_state):
     """encode_stream / decode_stream with the frame kernels at 128 streams
-    against the plain frame step; returns each frame kernel's launches."""
+    against the plain frame step; returns each kernel's launches on this
+    path (the frame kernels and the RVQ cascade, one per frame each)."""
     import torch
     from hilcodec_tpu_torch.ops import decoder_kernel as DK
     from hilcodec_tpu_torch.ops import encoder_kernel as EK
@@ -714,6 +830,7 @@ def phase_frame_path(model, params, vq_state):
     with torch.no_grad():
         DK.reset_launches()
         EK.reset_launches()
+        rvq_kernel.reset_launches()
         t0 = time.perf_counter()
         tok, ce_k = model.encode_stream(params, vq_state, wav, ce,
                                         megakernel=True)
@@ -722,7 +839,8 @@ def phase_frame_path(model, params, vq_state):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {DK.KERNEL: DK.LAUNCHES[DK.KERNEL],
-                    EK.KERNEL: EK.LAUNCHES[EK.KERNEL]}
+                    EK.KERNEL: EK.LAUNCHES[EK.KERNEL],
+                    rvq_kernel.KERNEL: rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]}
         # the plain frame step on the same audio, latents kept for the tie
         # analysis, then the plain decoder on the kernel path's tokens
         cache, zs, ref = ce, [], []
@@ -786,7 +904,7 @@ def main() -> int:
     from hilcodec_tpu_torch.ops import decoder_kernel, encoder_kernel
 
     name, line = phase_device()
-    max_err, timings = phase_kernels(torch.device("cuda"))
+    max_err, timings = phase_kernels(torch.device("cuda", 0))
     model, params, vq_state, sr = build_flagship("cuda")
     frame_err, frame_timings = phase_frame_kernels(model, params)
     for ch in ODD_CHANNELS:
@@ -798,13 +916,17 @@ def main() -> int:
     phase_bench()
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
-    # 8 stages; the frame-kernel path runs the frame kernels at 128 streams
+    # 8 stages (its time here: device time through a CUDA graph); the
+    # frame-kernel path runs the frame kernels, and the RVQ kernel at 128
+    # rows, at 128 streams
     ms, plain_ms, bound_ms, bound_by = timings[(SERVE_SLOTS, 8)]
     kernels = [{
         "name": rvq_kernel.KERNEL, "route": "cuda",
         "source": rvq_kernel.SOURCE,
         "replaces": "hilcodec_tpu/ops/pallas_rvq.py:148",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
+        "launches": launches,
+        "launches_frame_path": frame_launches[rvq_kernel.KERNEL],
+        "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]
     for mod, replaces in ((decoder_kernel,
