@@ -41,7 +41,22 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      and the RVQ cascade must be one per frame;
   6. bench: `python -m hilcodec_tpu_torch.bench S --seconds 1` run
      in-process at S = 16, 64 and 128 streams, plain and --megakernel in
-     turns (plain, kernel, kernel, plain), each JSON line logged.
+     turns (plain, kernel, kernel, plain), each JSON line logged;
+  7. training: (a) the flagship GAN trainer (build_trainer on
+     configs/hilcodec_speech.yaml, seeded weights, codebooks k-means-
+     initialized on a seeded batch) at batch 24 x 24000 samples of seeded
+     speech-like audio: 3 warm-up and 10 timed steps, step ms p50 / p90
+     (CUDA events), audio seconds trained per wall second, peak memory,
+     a torch.profiler window (device busy, top kernels), the step's FLOPs
+     and f32 bound; every loss finite, the params moved, the RVQ kernel
+     launched once a step; (b) one step on the card against the same step
+     on the CPU (batch 2 x 24000 samples, same state, batch and draws) at
+     the bars of tests/test_train_parity.py, AdamP held on the same
+     gradients and the whole step's deltas reported; (c) the training
+     forward's RVQ-kernel tokens against the plain cascade at M = 1800
+     rows, n = 2, 4, 8, and the kernel's time there; (d) `python -m
+     hilcodec_tpu_torch.train` on a seeded corpus for one epoch (writes
+     00001.ckpt.npz), then resumed for a second.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -892,6 +907,452 @@ def phase_bench():
                 f"{json.dumps(bench.run(base + extra))}")
 
 
+# --------------------------------------------------------------- phase 7
+
+TRAIN_BATCH = 24              # the flagship config's batch
+TRAIN_SEGMENT = 24000         # its segment (1 s at 24 kHz)
+TRAIN_WARMUP = 3
+TRAIN_TIMED = 10
+TRAIN_PROFILED = 3
+PARITY_BATCH = 2
+# card against the port's CPU step (the bars of tests/test_train_parity.py)
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 2e-3
+VQ_RTOL = 1e-4
+# a leaf's gradient error is taken against max(its norm, GRAD_FLOOR_REL x
+# the norm of all of that side's gradients): a leaf whose gradient is a
+# near-cancelling sum (a scalar residual scale) is held to that floor
+GRAD_FLOOR_REL = 1e-3
+# AdamP's first step moves each element by about lr * sign(gradient): an
+# element whose two gradients differ by more than its own size (a sign
+# tie) moves the other way, and the projection of a scale-invariant
+# weight spreads that over its channel. So the optimizer is held on the
+# same gradients, and the whole step's deltas and ties are reported
+GATE_MARGIN = 1e-3
+CLI_STEPS = 3
+CLI_BATCH = 4
+
+
+def speech_batch(rng, batch, length, sr=24000):
+    """Seeded speech-like audio [B, 1, T]: a harmonic voice whose f0
+    follows a random contour, under a syllable-rate envelope, plus noise."""
+    t = np.arange(length) / sr
+    f0 = (rng.uniform(90, 260, (batch, 1))
+          * (1 + 0.15 * np.sin(2 * np.pi * rng.uniform(0.5, 3, (batch, 1))
+                               * t + rng.uniform(0, 6.3, (batch, 1)))))
+    phase = 2 * np.pi * np.cumsum(f0 / sr, axis=1)
+    wav = np.zeros((batch, length))
+    for h in range(1, 16):
+        wav += (h * f0 < sr / 2) * np.sin(h * phase) / h
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 6, (batch, 1)) * t)
+    wav = wav * env + 0.02 * rng.standard_normal((batch, length))
+    wav *= rng.uniform(0.2, 0.6, (batch, 1)) / np.abs(wav).max(1,
+                                                               keepdims=True)
+    return wav[:, None, :].astype(np.float32)
+
+
+def train_setup(device, batch, seed):
+    """The flagship trainer on `device` and a seeded state whose codebooks
+    are k-means-initialized on a seeded batch (not one later stepped on)."""
+    import torch
+    from hilcodec_tpu_torch.train.loop import build_trainer
+    from hilcodec_tpu_torch.train.step import to_device
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    hps = load_config(CONFIG)
+    trainer = build_trainer(hps, device)
+    state = trainer.init_state(torch.Generator().manual_seed(seed))
+    wav = speech_batch(np.random.default_rng(seed), batch, TRAIN_SEGMENT)
+    vq = trainer.model.vq
+    with torch.no_grad():
+        z = trainer.model.codec.encoder.apply(state.params_g["encoder"],
+                                              to_device(wav, trainer.device))
+    init_idx = vq.kmeans_init_indices(torch.Generator().manual_seed(seed + 7),
+                                      z.shape[0] * z.shape[-1])
+    state = state._replace(vq_state=vq.kmeans_init_state(
+        state.vq_state, z, init_idx))
+    return hps, trainer, state
+
+
+def train_bound(trainer, state, wav_t, draws):
+    """The step's FLOPs as torch.utils.flop_counter counts them from the
+    conv and matmul shapes (forward and backward; FFTs and elementwise
+    work not counted), and its f32 bound at PEAK_F32_FLOPS in ms."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        trainer.train_step(state, wav_t, draws)
+    flops = fc.get_total_flops()
+    by_op = {}
+    for op, n in fc.get_flop_counts().get("Global", {}).items():
+        name = str(op).split(".")[1] if "." in str(op) else str(op)
+        by_op[name] = by_op.get(name, 0) + n
+    return flops, flops / PEAK_F32_FLOPS * 1e3, by_op
+
+
+def phase_train_full(card):
+    """(a) The flagship trainer at batch 24 x 24000 on the card: k-means
+    init, warm-up steps, timed steps (CUDA events per step), throughput,
+    peak memory, a torch.profiler window and the FLOP bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.train.loop import step_generator
+    from hilcodec_tpu_torch.train.step import metrics_to_host, to_device
+    from hilcodec_tpu_torch.utils.params import flatten
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 20)
+    torch.cuda.synchronize()
+    log(f"[train] flagship trainer (configs/hilcodec_speech.yaml) on the "
+        f"card, batch {TRAIN_BATCH} x {TRAIN_SEGMENT} samples; built and "
+        f"k-means-initialized in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 21)
+    batches = [to_device(speech_batch(rng, TRAIN_BATCH, TRAIN_SEGMENT),
+                         trainer.device)
+               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    first_g = {k: v.clone() for k, v in flatten(state.params_g).items()}
+    first_d = {k: v.clone() for k, v in flatten(state.params_d).items()}
+    it = 0
+
+    def step(wav_t):
+        nonlocal state, it
+        draws = trainer.sample_draws(step_generator(SEED, it), wav_t.shape)
+        state, m = trainer.train_step(state, wav_t, draws)
+        it += 1
+        return m, draws
+
+    t0 = time.perf_counter()
+    for b in batches[:TRAIN_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    log(f"[train] {TRAIN_WARMUP} warm-up steps in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_TIMED + 1)]
+    metrics, depths = [], []
+    rvq_kernel.reset_launches()
+    t0 = time.perf_counter()
+    events[0].record()
+    for i, b in enumerate(batches[TRAIN_WARMUP:]):
+        m, draws = step(b)
+        metrics.append(m)
+        depths.append(draws.n)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_TIMED)]
+    p50, p90 = np.percentile(step_ms, 50), np.percentile(step_ms, 90)
+    audio_s = TRAIN_TIMED * TRAIN_BATCH * TRAIN_SEGMENT / 24000.0
+    peak = torch.cuda.max_memory_allocated()
+    host = [metrics_to_host(m) for m in metrics]
+    log(f"[train] {TRAIN_TIMED} timed steps: step ms p50 {p50:.1f}, p90 "
+        f"{p90:.1f} (CUDA events; all "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)}); wall {wall:.3f} s, "
+        f"{audio_s / wall:.1f} audio s trained per wall s; peak memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"dropout depths {depths}; rvq_cascade launches {launches} ({card})")
+    for k in ("loss/freq", "loss/mfbd_g", "loss/mfbd_fm", "loss/mstftd_g",
+              "loss/mstftd_fm", "loss/vq", "loss/d"):
+        log(f"[train]   {k}: " + ", ".join(f"{h[k]:.4g}" for h in host))
+    bad = [(i, k) for i, h in enumerate(host) for k, v in h.items()
+           if k != "num_replaces" and not np.all(np.isfinite(v))]
+    if bad or any(h["finite"] != 1.0 for h in host):
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    if launches != TRAIN_TIMED:
+        raise AssertionError(f"rvq_cascade launched {launches} times in "
+                             f"{TRAIN_TIMED} steps")
+    last_g, last_d = flatten(state.params_g), flatten(state.params_d)
+    still_g = [k for k, v in first_g.items() if torch.equal(v, last_g[k])]
+    still_d = [k for k, v in first_d.items() if torch.equal(v, last_d[k])]
+    log(f"[train] params moved: {len(first_g) - len(still_g)} / "
+        f"{len(first_g)} generator leaves, {len(first_d) - len(still_d)} / "
+        f"{len(first_d)} discriminator leaves (unmoved: "
+        f"{(still_g + still_d)[:12]})")
+    if len(still_g) > len(first_g) // 2 or len(still_d) > len(first_d) // 2:
+        raise AssertionError("the parameters did not move")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[:TRAIN_PROFILED]:
+            step(b)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in dev) / TRAIN_PROFILED / 1e3
+    n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
+    log(f"[train] torch.profiler over {TRAIN_PROFILED} steps: {dev_ms:.1f} "
+        f"ms of device kernels and {n_kernels:.0f} kernels a step; device "
+        f"busy {dev_ms / p50 * 100:.0f}% of the p50 step")
+    for e in sorted(dev, key=lambda e: -e.device_time_total)[:10]:
+        log(f"[train]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f} ms "
+            f"x{e.count / TRAIN_PROFILED:.0f}/step  {e.key[:90]}")
+
+    wav_t = batches[0]
+    draws = trainer.sample_draws(step_generator(SEED, 0), wav_t.shape)
+    flops, bound_ms, by_op = train_bound(trainer, state, wav_t, draws)
+    log(f"[train] step FLOPs (conv + matmul shapes, forward and backward, "
+        f"dropout depth {draws.n}): {flops / 1e12:.2f} TFLOP ("
+        + ", ".join(f"{k} {v / 1e12:.2f}" for k, v in sorted(
+            by_op.items(), key=lambda kv: -kv[1]))
+        + f"); f32 bound {bound_ms:.1f} ms at "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"{bound_ms / p50 * 100:.1f}% of the p50 step")
+    return trainer, state, dict(p50=p50, p90=p90, launches=launches,
+                                bound_ms=bound_ms)
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
+
+
+def _rel_l2(a, b, floor=1e-30):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), floor))
+
+
+def phase_train_parity():
+    """(b) One step of the port on the card against the same step of the
+    port on the CPU: full width, batch 2, the same state (codebooks
+    k-means-initialized on the CPU on another batch), batch and draws."""
+    import torch
+    from hilcodec_tpu_torch.train.loop import build_trainer, step_generator
+    from hilcodec_tpu_torch.train.step import to_device
+    from hilcodec_tpu_torch.utils.params import flatten, tree_map, unflatten
+
+    t0 = time.perf_counter()
+    hps, cpu_tr, cpu_state = train_setup("cpu", PARITY_BATCH, SEED + 30)
+    # zero-init scales set to seeded nonzero values, as the CPU tests do,
+    # so every residual and spec branch carries gradient
+    gen = torch.Generator().manual_seed(SEED + 32)
+    flat = flatten(cpu_state.params_g)
+    for k, v in flat.items():
+        if k.endswith("scale_param"):
+            flat[k] = torch.rand(v.shape, generator=gen) + 0.5
+    cpu_state = cpu_state._replace(params_g=unflatten(flat))
+    wav = speech_batch(np.random.default_rng(SEED + 31), PARITY_BATCH,
+                       TRAIN_SEGMENT)
+    card_tr = build_trainer(hps, "cuda")
+    card_state = tree_map(lambda x: x.to("cuda"), cpu_state)
+    draws = cpu_tr.sample_draws(step_generator(SEED, 0), wav.shape)
+    card_draws = dataclasses.replace(draws,
+                                     expire_idx=draws.expire_idx.cuda())
+    aux_c = cpu_tr.compute_grads(cpu_state, torch.from_numpy(wav), draws)
+    new_c, _ = cpu_tr.apply_grads(cpu_state, aux_c)
+    wav_g = to_device(wav, card_tr.device)
+    aux_g = card_tr.compute_grads(card_state, wav_g, card_draws)
+    new_g, _ = card_tr.apply_grads(card_state, aux_g)
+    again = card_tr.compute_grads(card_state, wav_g, card_draws)
+    torch.cuda.synchronize()
+    log(f"[train-parity] one step at batch {PARITY_BATCH} x "
+        f"{TRAIN_SEGMENT} samples, dropout depth "
+        f"{draws.n}, on the card and on the CPU (in "
+        f"{time.perf_counter() - t0:.1f} s with set-up)")
+
+    worst = {}
+    for k, v in aux_c["losses"].items():
+        worst[f"loss/{k}"] = _rel(aux_g["losses"][k], v)
+    for k in ("loss_vq", "d_loss"):
+        worst[k] = _rel(aux_g[k], aux_c[k])
+    for k in ("ema_norms", "ema_fix"):
+        worst[f"balancer/{k}"] = float(
+            ((aux_g["new_bal"][k].cpu() - aux_c["new_bal"][k]).abs()
+             / aux_c["new_bal"][k].abs()).max())
+    for k in ("embed", "ema_embed", "ema_num"):
+        worst[f"vq/{k}"] = _rel_l2(aux_g["new_vq_state"][k],
+                                   aux_c["new_vq_state"][k])
+    log("[train-parity] losses, balancer EMA (max relative error) and VQ "
+        "state (relative L2); bars 1e-4: " + ", ".join(
+            f"{k} {v:.2g}" for k, v in worst.items()))
+    replaces = (aux_g["num_replaces"].cpu().tolist(),
+                aux_c["num_replaces"].tolist())
+    log(f"[train-parity] codes replaced by stage, card / CPU: {replaces}")
+    for k, rel in worst.items():
+        bar = VQ_RTOL if k.startswith("vq/") else LOSS_RTOL
+        if not rel <= bar:
+            raise AssertionError(f"card vs CPU: {k} off by {rel:.3g} "
+                                 f"(bar {bar})")
+    if replaces[0] != replaces[1]:
+        raise AssertionError(f"card vs CPU replace counts {replaces}")
+
+    flips = []
+    for side in ("g", "d"):
+        opt = getattr(cpu_tr, f"optim_{side}")
+        g_c, g_g = aux_c[f"{side}_grads"], aux_g[f"{side}_grads"]
+        fc = flatten(g_c)
+        fg = {k: v.cpu() for k, v in flatten(g_g).items()}
+        floor = GRAD_FLOOR_REL * float(torch.sqrt(sum(
+            torch.sum(v.double() ** 2) for v in fc.values())))
+        errs = sorted(((_rel_l2(fg[k], fc[k], floor), k) for k in fc),
+                      reverse=True)
+        params = getattr(cpu_state, f"params_{side}")
+        gate_c = opt.gate_report(g_c, params)
+        gate_g = opt.gate_report(unflatten(fg), params)
+        skip = set()
+        for path, (ch, ch_t, ly, ly_t) in gate_c.items():
+            h = gate_g[path]
+            if (ch < ch_t, ly < ly_t) == (h[0] < h[1], h[2] < h[3]):
+                continue
+            near = all(abs(x - t) <= GATE_MARGIN * t
+                       for x, t in ((ch, ch_t), (h[0], h[1])))
+            near = near or all(abs(x - t) <= GATE_MARGIN * t
+                               for x, t in ((ly, ly_t), (h[2], h[3])))
+            if not near:
+                raise AssertionError(f"AdamP gate differs at {path} away "
+                                     f"from its threshold")
+            flips.append(path)
+            skip.add(path.replace("/", "."))
+        # the card's AdamP on the CPU's gradients against the CPU's update
+        opt_g = getattr(card_tr, f"optim_{side}")
+        upd_c, _ = opt.update(g_c, getattr(cpu_state, f"opt_{side}"),
+                              params, torch.full((), 1e-4))
+        upd_g, _ = opt_g.update(
+            tree_map(lambda x: x.cuda(), g_c),
+            tree_map(lambda x: x.cuda(), getattr(cpu_state, f"opt_{side}")),
+            tree_map(lambda x: x.cuda(), params),
+            torch.full((), 1e-4, device="cuda"))
+        fu_c, fu_g = flatten(upd_c), flatten(upd_g)
+        uerrs = sorted(((_rel_l2(fu_g[k], fu_c[k]), k) for k in fu_c
+                        if k not in skip), reverse=True)
+        # the whole step: deltas where both gradients give one sign
+        p0 = flatten(params)
+        p_c = flatten(getattr(new_c, f"params_{side}"))
+        p_g = flatten(getattr(new_g, f"params_{side}"))
+        derrs, ties, worst_tie = [], 0, (0.0, "")
+        for k in p0:
+            if k in skip:
+                continue
+            keep = (fg[k] - fc[k]).abs() < fc[k].abs()
+            ties += int((~keep).sum())
+            worst_tie = max(worst_tie, (1.0 - float(keep.float().mean()), k))
+            derrs.append((_rel_l2((p_g[k].cpu() - p0[k])[keep],
+                                  (p_c[k] - p0[k])[keep]), k))
+        derrs.sort(reverse=True)
+        log(f"[train-parity] {side.upper()}: {len(fc)} leaves, worst grad "
+            f"rel L2 {errs[0][0]:.2g} ({errs[0][1]}; floor "
+            f"{GRAD_FLOOR_REL} of the global norm), worst AdamP update from "
+            f"the same gradients rel L2 {uerrs[0][0]:.2g} ({uerrs[0][1]}); "
+            f"bars {GRAD_RTOL}. The whole step's AdamP deltas: worst rel L2 "
+            f"{derrs[0][0]:.2g} ({derrs[0][1]}) over the elements whose "
+            f"gradient sign both sides give; sign ties {ties} elements, at "
+            f"most {worst_tie[0]:.2%} of a leaf ({worst_tie[1]}); reported")
+        if errs[0][0] > GRAD_RTOL or uerrs[0][0] > GRAD_RTOL:
+            raise AssertionError(f"card vs CPU {side}: grads {errs[:3]}, "
+                                 f"AdamP updates {uerrs[:3]}")
+    log(f"[train-parity] AdamP gate flips within {GATE_MARGIN} of the "
+        f"threshold (reported, not failures): {flips or 'none'}")
+    rerun = max(_rel_l2(a, b) for a, b in zip(
+        flatten(again["g_grads"]).values(),
+        flatten(aux_g["g_grads"]).values()))
+    log(f"[train-parity] the same step twice on the card: G grads differ "
+        f"by rel L2 up to {rerun:.2g} (cuDNN's backward-weight kernels "
+        f"need not be bitwise repeatable; reported, not asserted)")
+
+
+def phase_train_tokens(trainer, state):
+    """(c) The training forward's stage indices (the RVQ kernel) against
+    the plain cascade at M = 1800 rows, n = 2, 4, 8."""
+    import torch
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+
+    wav = speech_batch(np.random.default_rng(SEED + 40), TRAIN_BATCH,
+                       TRAIN_SEGMENT)
+    books = state.vq_state["embed"]
+    with torch.no_grad():
+        z = trainer.model.codec.encoder.apply(
+            state.params_g["encoder"], torch.from_numpy(wav).cuda())
+        x = z.transpose(1, 2).contiguous()
+        M = x.shape[0] * x.shape[1]
+        for n in (2, 4, 8):
+            got = rvq_kernel.quantize_cuda(x, books, n)
+            ref = rvq.quantize(x, books, n)
+            rep = rvq.token_parity_report(got, ref, x, books)
+            plan, _ = rvq_kernel.device_plan(x.device, M, books.shape[1],
+                                             books.shape[2], n)
+            ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
+            bound_ms, bound_by = rvq_bound_ms(M, n, books.shape[1],
+                                              books.shape[2])
+            log(f"[train-tokens] M={M} n={n} (trained codebooks): "
+                f"mismatches {rep['mismatches']} (ties {rep['ties']}, not "
+                f"ties {rep['not_ties']}); plan G={plan.cluster} "
+                f"TM={plan.rows}, {plan.tiles} clusters; kernel "
+                f"{ms * 1e3:.2f} us (CUDA graph), bound {bound_ms * 1e3:.2f}"
+                f" us ({bound_by})")
+            if not rep["ok"]:
+                raise AssertionError(f"training tokens differ beyond ties "
+                                     f"at n={n}: {rep}")
+
+
+def phase_train_cli(tmp):
+    """(d) `python -m hilcodec_tpu_torch.train` on a seeded corpus written
+    with the port's write_wav: one epoch writes 00001.ckpt.npz, a second
+    run resumes from it and writes 00002.ckpt.npz."""
+    import yaml
+    from hilcodec_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(SEED + 50)
+    os.makedirs(os.path.join(tmp, "train"))
+    for i in range(6):
+        write_wav(os.path.join(tmp, "train", f"{i}.wav"),
+                  speech_batch(rng, 1, 36000)[0, 0], 24000)
+    for i in range(2):
+        write_wav(os.path.join(tmp, f"v{i}.wav"),
+                  speech_batch(rng, 1, 24000)[0, 0], 24000)
+    with open(os.path.join(tmp, "valid.txt"), "w") as f:
+        f.write("v0.wav\nv1.wav\n")
+    with open(os.path.join(ROOT, "configs",
+                           "hilcodec_speech_synth.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    data = cfg["data"]
+    data["classes"]["clean"]["directories_to_include"] = [
+        os.path.join(tmp, "train")]
+    data["length"] = CLI_STEPS * CLI_BATCH
+    data["wav_dir"] = tmp
+    data["filelists"] = {"valid": os.path.join(tmp, "valid.txt")}
+    cfg["train"].update(batch_size=CLI_BATCH, max_epochs=1, save_interval=1,
+                        num_workers=0)
+    cfg["valid"] = {"batch_size": 2}
+    path = os.path.join(tmp, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    base = os.path.join(tmp, "logs")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for i, extra in enumerate((["-c", path], ["-p", "train.max_epochs=2"])):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "hilcodec_tpu_torch.train", "-n", "smoke",
+             "-b", base] + extra, cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        for ln in (out.stdout + out.stderr).strip().splitlines()[-6:]:
+            log(f"[train-cli]   {ln[:160]}")
+        ckpt = os.path.join(base, "smoke", f"{i + 1:05d}.ckpt.npz")
+        if out.returncode != 0 or not os.path.exists(ckpt):
+            raise AssertionError(f"train CLI run {i + 1} failed "
+                                 f"(rc {out.returncode}) or wrote no {ckpt}")
+        if i == 1 and "resumed from" not in out.stdout:
+            raise AssertionError("the second CLI run did not resume")
+        log(f"[train-cli] run {i + 1} ({' '.join(extra)}): rc 0 in "
+            f"{time.perf_counter() - t0:.1f} s, wrote "
+            f"{os.path.relpath(ckpt, tmp)}")
+
+
+def phase_train(card):
+    """The train phase, (a) to (d); returns (a)'s step times and K1's
+    launches on the timed steps."""
+    import tempfile
+    trainer, state, res = phase_train_full(card)
+    phase_train_tokens(trainer, state)
+    del trainer, state
+    phase_train_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_cli(tmp)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -914,6 +1375,8 @@ def main() -> int:
     phase_timings(model, params, vq_state, line)
     frame_launches = phase_frame_path(model, params, vq_state)
     phase_bench()
+    del model, params, vq_state
+    train = phase_train(line)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -926,6 +1389,7 @@ def main() -> int:
         "replaces": "hilcodec_tpu/ops/pallas_rvq.py:148",
         "launches": launches,
         "launches_frame_path": frame_launches[rvq_kernel.KERNEL],
+        "launches_train_path": train["launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]

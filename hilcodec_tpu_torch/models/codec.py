@@ -1,6 +1,7 @@
 """Full codec: encoder -> RVQ -> decoder, offline and streaming.
 
-Counterpart of `hilcodec_tpu/models/codec.py`. The streaming drivers are
+Counterpart of `hilcodec_tpu/models/codec.py`. `forward` is the training
+graph (encoder, training RVQ pass, decoder). The streaming drivers are
 Python loops over frames (the JAX package's `lax.scan`), one encoder /
 decoder step per frame, with the caches in the JAX order and the JAX
 output shapes (tokens `[n, B, L]`, wav `[B, 1, L*hop]`). The quantizer is
@@ -56,10 +57,17 @@ class CodecModel:
             raise NotImplementedError(
                 f"vq {vq_name!r} is not ported yet (see ROADMAP.md)")
         vq_kwargs = dict(model_kwargs.get("vq_kwargs", {}))
-        vq = Q.ResidualVQ(dim=vq_kwargs.get("dim", 128),
-                          codebook_size=vq_kwargs.get("codebook_size", 1024),
-                          num_quantizers=vq_kwargs.get("num_quantizers", 8),
-                          kmeans_init=vq_kwargs.get("kmeans_init", True))
+        vq = Q.ResidualVQ(
+            dim=vq_kwargs.get("dim", 128),
+            codebook_size=vq_kwargs.get("codebook_size", 1024),
+            num_quantizers=vq_kwargs.get("num_quantizers", 8),
+            kmeans_init=vq_kwargs.get("kmeans_init", True),
+            decay=vq_kwargs.get("decay", 0.99),
+            ema_num_threshold=vq_kwargs.get("ema_num_threshold", 0.0),
+            ema_num_initial=vq_kwargs.get("ema_num_initial", 1.0),
+            dropout=vq_kwargs.get("dropout", False),
+            dropout_index=tuple(vq_kwargs["dropout_index"])
+            if vq_kwargs.get("dropout_index") else None)
         return cls(HILCodec.from_config(model_kwargs), vq,
                    resolve_device(device))
 
@@ -81,6 +89,20 @@ class CodecModel:
                   ) -> Tuple[Params, Q.VQState]:
         return (params_to(params, self.device),
                 {k: v.to(self.device) for k, v in vq_state.items()})
+
+    # -- training graph -----------------------------------------------------
+    def forward(self, params: Params, vq_state: Q.VQState, wav: torch.Tensor,
+                draws: Optional[Q.RVQDraws] = None, training: bool = True
+                ) -> Tuple[torch.Tensor, Q.VQState, torch.Tensor,
+                           torch.Tensor]:
+        """wav [B, 1, T] -> (wav_g [B, 1, T], new_vq_state, loss_vq,
+        num_replaces): encoder, RVQ (the kernel's stage indices, EMA update
+        when training, straight-through output), decoder."""
+        z = self.codec.encoder.apply(params["encoder"], wav)
+        q, vq_state, loss_vq, num_replaces, _ = self.vq(
+            z.float(), vq_state, draws, training)
+        wav_g = self.codec.decoder.apply(params["decoder"], q.to(z.dtype))
+        return wav_g.float(), vq_state, loss_vq, num_replaces
 
     # -- offline (whole-utterance) coding -----------------------------------
     def encode(self, params: Params, vq_state: Q.VQState, wav: torch.Tensor,

@@ -8,7 +8,8 @@ axes (torch's `weight_norm(dim=0)`); `fold` turns it into `{w[, b]}`.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -36,6 +37,19 @@ def _check(norm: str) -> None:
     if norm not in (WEIGHT_NORM, NONE):
         raise NotImplementedError(
             f"norm {norm!r} is not ported yet (see ROADMAP.md)")
+
+
+def torch_default_conv_init(gen: torch.Generator, shape: Tuple[int, ...],
+                            with_bias: bool = True
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """torch Conv{1,2}d's default init drawn from `gen`: kaiming_uniform
+    with a=sqrt(5), i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in)), for the
+    weight and the bias."""
+    bound = math.sqrt(1.0 / math.prod(shape[1:]))
+    w = torch.empty(shape).uniform_(-bound, bound, generator=gen)
+    b = (torch.empty(shape[0]).uniform_(-bound, bound, generator=gen)
+         if with_bias else None)
+    return w, b
 
 
 def init_reparam(w: torch.Tensor, norm: str,

@@ -1,8 +1,10 @@
-"""Causal magnitude STFT of the SpecBlocks (`hilcodec_tpu/ops/stft.py`).
+"""STFT helpers (`hilcodec_tpu/ops/stft.py`).
 
-Framing plus one matmul against the windowed cos/sin DFT basis, in f32.
-`pad=True` left-pads n_fft-1 zeros (batch mode); `pad=False` expects the
-caller to supply the n_fft-1 samples of history (streaming mode).
+`causal_stft_mag` is the SpecBlocks' causal magnitude STFT: framing plus
+one matmul against the windowed cos/sin DFT basis, in f32. `pad=True`
+left-pads n_fft-1 zeros (batch mode); `pad=False` expects the caller to
+supply the n_fft-1 samples of history (streaming mode). `hann_window` and
+`frame` serve the training losses and the STFT discriminator.
 """
 
 from __future__ import annotations
@@ -23,6 +25,23 @@ def hann_window_np(win_size: int) -> np.ndarray:
     n = np.arange(win_size)
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)).astype(
         np.float32)
+
+
+@lru_cache(maxsize=None)
+def hann_window(win_size: int, device: torch.device = torch.device("cpu")
+                ) -> torch.Tensor:
+    """Periodic f32 Hann, matching torch.hann_window(win_size); made once
+    per device and shared, so callers must not write to it."""
+    return torch.from_numpy(hann_window_np(win_size)).to(device)
+
+
+def frame(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """[..., T] -> [..., L, frame_length] overlapping frames from sample 0."""
+    if x.shape[-1] < frame_length:
+        raise ValueError(
+            f"input length {x.shape[-1]} shorter than frame_length "
+            f"{frame_length}; use longer segments (the configs use 24000)")
+    return x.unfold(-1, frame_length, hop)
 
 
 def causal_stft_basis(n_fft: int, win_size: Optional[int] = None,

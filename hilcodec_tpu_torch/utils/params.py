@@ -10,6 +10,12 @@ The JAX tree already stores convolution weights in torch's layouts
 (conv `[Cout, Cin/g, k]`, transposed conv `[Cin, Cout/g, k]`), so loading
 is a rename plus a check of every name and shape against the model's own
 template (unfolded `{v, g[, b]}` or folded `{w[, b]}` leaves).
+
+The train state (`train/step.TrainState`: both param trees, the VQ state,
+both optimizer states, the balancer state and the counters) crosses the
+same way: `tree_to_flat` / `tree_from_flat` name each leaf by the path the
+JAX package gives it in a `.ckpt.npz`, NamedTuple fields as `.field`
+(`.params_g/encoder/conv_pre/v`, `.opt_g/.exp_avg/...`, `.iteration`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,75 @@ import numpy as np
 import torch
 
 Params = Dict[str, Any]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply fn leafwise over trees of one structure (dicts, lists, tuples
+    and NamedTuples of leaves)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, *rest)
+
+
+def _path_items(node) -> List[Tuple[str, Any]]:
+    """Children with their JAX path keys: `.field` for a NamedTuple."""
+    if hasattr(node, "_fields"):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
+    return _items(node)
+
+
+def tree_to_flat(tree) -> Dict[str, np.ndarray]:
+    """Any state tree -> {JAX leaf path: np.ndarray}, as the JAX
+    package's checkpoint writes it."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, (dict, list, tuple)):
+            for k, v in _path_items(node):
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            out[prefix] = node.detach().cpu().numpy()
+
+    walk(tree, "")
+    return out
+
+
+def tree_from_flat(flat: Mapping[str, np.ndarray], template,
+                   missing: List[str] = None):
+    """Rebuild `template`'s structure from flat JAX-path arrays, each leaf
+    on its template leaf's device with its dtype; shapes must match. A
+    path absent from `flat` keeps the template's leaf and is appended to
+    `missing` when a list is given, else raises."""
+    def walk(node, prefix):
+        if isinstance(node, (dict, list, tuple)):
+            items = [(k, walk(v, f"{prefix}/{k}" if prefix else k))
+                     for k, v in _path_items(node)]
+            if isinstance(node, dict):
+                return dict(items)
+            vals = [v for _, v in items]
+            if isinstance(node, list):
+                return vals
+            return type(node)(*vals) if hasattr(node, "_fields") \
+                else tuple(vals)
+        if prefix not in flat:
+            if missing is None:
+                raise ValueError(f"no array for {prefix}")
+            missing.append(prefix)
+            return node
+        arr = np.asarray(flat[prefix])
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(f"{prefix}: shape {arr.shape} != "
+                             f"{tuple(node.shape)}")
+        return torch.from_numpy(np.array(arr)).to(node.device, node.dtype)
+
+    return walk(template, "")
 
 
 def _items(node) -> List[Tuple[str, Any]]:

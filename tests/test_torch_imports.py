@@ -35,7 +35,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "m.startswith('hilcodec_tpu.'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n")
+        "assert len(names) >= 39, names\n")
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr[-2000:]
 
