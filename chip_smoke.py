@@ -56,7 +56,22 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      forward's RVQ-kernel tokens against the plain cascade at M = 1800
      rows, n = 2, 4, 8, and the kernel's time there; (d) `python -m
      hilcodec_tpu_torch.train` on a seeded corpus for one epoch (writes
-     00001.ckpt.npz), then resumed for a second.
+     00001.ckpt.npz), then resumed for a second;
+  8. tools, on 7(d)'s 00002.ckpt.npz in the same directory: `python -m
+     hilcodec_tpu_torch.export --ckpt`; `serve --ckpt` in a subprocess and
+     an engine on the exported deploy npz, one 75-frame TCP client each,
+     identical tokens; `infer --ckpt --latency` at -f 1 and -f 4 on 3 s of
+     seeded speech (int16 [8, 1, T]; -f 4 tokens exact or ties against
+     -f 1, PCM within PCM_TOL_LSB; RTFs and per-step p50 / p90 / p99);
+     `eval` in model mode (--stream, 4 seeded wavs, sisdr, stoi, mcd and
+     the numpy PESQ) and in degraded mode on the infer output; the RVQ
+     kernel's launches over these; the frame kernels at 4 frames a launch
+     (encode_stream / decode_stream(megakernel=True, frames_per_step=4))
+     at 16 and 128 streams against the plain drivers, one launch per 4
+     frames, each timed at t = 4; a train CLI run with the histograms, the
+     infer epoch and SI-SDR at interval 1 (its event files, or its one-line
+     notice of what it cannot write); `clean_checkpoint --dry-run` lists
+     only 00001.ckpt.npz.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -1341,8 +1356,9 @@ def phase_train_cli(tmp):
 
 
 def phase_train(card):
-    """The train phase, (a) to (d); returns (a)'s step times and K1's
-    launches on the timed steps."""
+    """The train phase, (a) to (d), then phase 8 on (d)'s checkpoint in the
+    same directory; returns (a)'s step times and K1's launches on the timed
+    steps, and phase 8's launch counts and t = 4 timings."""
     import tempfile
     trainer, state, res = phase_train_full(card)
     phase_train_tokens(trainer, state)
@@ -1350,7 +1366,377 @@ def phase_train(card):
     phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_cli(tmp)
-    return res
+        tools = phase_tools(tmp, card)
+    return res, tools
+
+
+# --------------------------------------------------------------- phase 8
+
+TOOLS_SECONDS = 3             # the infer input
+T4 = 4                        # frames a launch of the frame kernels
+T4_FRAMES = 72                # the t = 4 check: 18 launches a kernel
+EVAL_FILES = 4
+
+
+def cli(module, args, timeout=600):
+    """`python -m hilcodec_tpu_torch.<module> args` in a subprocess; its
+    output, or AssertionError when it fails."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"hilcodec_tpu_torch.{module}"]
+                         + args, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)}: rc "
+                             f"{out.returncode}\n{out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def in_process(main, argv):
+    """An entry point's `main(argv)` in this process (its kernel launches
+    count here); its standard output, also logged."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    for ln in buf.getvalue().strip().splitlines():
+        log(f"[tools]   {ln}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def serve_subprocess(cfg, ckpt):
+    """`python -m hilcodec_tpu_torch.serve --ckpt` on a free port: (process,
+    port, seconds to its first "serving" line)."""
+    import queue
+    import threading
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hilcodec_tpu_torch.serve", "-c", cfg,
+         "--ckpt", ckpt, "--slots", "4", "--port", "0"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    seen = []
+    while time.perf_counter() - t0 < 300:
+        try:
+            ln = lines.get(timeout=5)
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        seen.append(ln.rstrip())
+        m = re.match(r"serving mode=\S+ slots=\d+ n_q=\d+ on [\d.]+:(\d+)",
+                     ln)
+        if m:
+            return proc, int(m.group(1)), time.perf_counter() - t0
+    proc.kill()
+    proc.wait()
+    raise AssertionError("serve --ckpt did not start: "
+                         + " | ".join(seen[-10:]))
+
+
+def phase_tools(tmp, card):
+    """8. The tools on (d)'s trained checkpoint logs/smoke/00002.ckpt.npz:
+    (a) export, then serve --ckpt in a subprocess and an engine built here
+    from the exported deploy npz, one 75-frame TCP client each, identical
+    tokens; (b) infer at -f 1 and -f 4 with --latency; (c) eval in model
+    mode (--stream) and degraded mode on the infer output; the RVQ
+    kernel's launches over (a)'s engine, (b) and (c); (d) the frame kernels
+    at t = 4 frames a launch on the trained weights; (e) a train CLI run
+    with the infer and pesq epochs and the histograms on; (f)
+    clean_checkpoint --dry-run."""
+    import torch
+    from hilcodec_tpu_torch import eval as tools_eval
+    from hilcodec_tpu_torch import infer as tools_infer
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+    from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
+    from hilcodec_tpu_torch.serve.__main__ import serving_weights
+    from hilcodec_tpu_torch.utils.hparams import load_config
+    from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
+
+    cfg = os.path.join(tmp, "config.yaml")
+    ckpt = os.path.join(tmp, "logs", "smoke", "00002.ckpt.npz")
+    hps = load_config(cfg)
+    sr = hps.data.sampling_rate
+
+    # (a) export, and the two ways to the server
+    deploy = os.path.join(tmp, "deploy", "smoke")
+    out, dt = cli("export", ["-c", cfg, "--ckpt", ckpt, "-o", deploy])
+    log(f"[tools] export --ckpt 00002.ckpt.npz in {dt:.1f} s (process "
+        f"start included; {card}): {out.strip()}")
+    proc, port, dt = serve_subprocess(cfg, ckpt)
+    try:
+        log(f"[tools] serve --ckpt serving on port {port} {dt:.1f} s after "
+            f"start ({card})")
+        model, params, vq_state = serving_weights(
+            hps, params_path=deploy + "_deploy.npz", device="cuda")
+        hop, n_q = model.hop_length, model.vq.num_quantizers
+        audio = client_audio(0, hop)
+        tok_ckpt, pcm_ckpt = asyncio.run(run_client(port, audio, hop, n_q))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    engine = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
+                        fold=False, device=model.device)
+    engine.warmup()
+
+    async def served():
+        srv = CodecServer(engine, sr=sr, port=0)
+        await srv.start()
+        try:
+            return await run_client(srv.port, audio, hop, n_q)
+        finally:
+            await srv.stop()
+
+    rvq_kernel.reset_launches()
+    tok_npz, pcm_npz = asyncio.run(served())
+    lsb = int(np.abs(pcm_npz.astype(np.int64) - pcm_ckpt).max())
+    if tok_npz.shape != (n_q, CLIENT_FRAMES) or not np.array_equal(
+            tok_npz, tok_ckpt) or lsb > PCM_TOL_LSB:
+        raise AssertionError(f"serve --ckpt and the exported deploy npz "
+                             f"differ: tokens equal "
+                             f"{np.array_equal(tok_npz, tok_ckpt)}, PCM "
+                             f"{lsb} steps")
+    log(f"[tools] one {CLIENT_FRAMES}-frame TCP client: serve --ckpt and an "
+        f"engine on export's deploy npz give identical tokens; PCM max "
+        f"|diff| {lsb} int16 steps (tolerance {PCM_TOL_LSB})")
+    del engine
+
+    # (b) infer at 1 and 4 frames a step
+    wav = speech_batch(np.random.default_rng(SEED + 60), 1,
+                       TOOLS_SECONDS * sr)[0, 0]
+    inp = os.path.join(tmp, "tools_in.wav")
+    write_wav(inp, wav, sr)
+    res = {}
+    for f in (1, T4):
+        o = os.path.join(tmp, f"infer_f{f}")
+        text, dt = in_process(tools_infer.main, [
+            "-c", cfg, "-i", inp, "--ckpt", ckpt, "-o", o, "-f", str(f),
+            "--latency"])
+        tok = np.load(o + "_quantized.npy")
+        out_wav, out_sr = read_wav(o + "_output.wav")
+        L = TOOLS_SECONDS * sr // hop // f * f
+        if tok.dtype != np.int16 or tok.shape != (n_q, 1, L) \
+                or out_sr != sr or out_wav.shape != (L * hop,) \
+                or not np.isfinite(out_wav).all():
+            raise AssertionError(f"infer -f {f}: tokens {tok.dtype} "
+                                 f"{tok.shape}, wav {out_wav.shape}")
+        nums = dict(re.findall(r"(encoder|decoder) RTF:\s+([\d.]+)x", text))
+        lat = re.search(r"p50 ([\d.]+)\s+p90 ([\d.]+)\s+p99 ([\d.]+) ms",
+                        text)
+        res[f] = (tok, np.round(out_wav * 32768).astype(np.int64))
+        log(f"[tools] infer -f {f}: encoder RTF {nums['encoder']}x, "
+            f"decoder RTF {nums['decoder']}x on {TOOLS_SECONDS} s; "
+            f"per-step latency p50 {lat.group(1)} / p90 {lat.group(2)} / "
+            f"p99 {lat.group(3)} ms against {f * hop / sr * 1e3:.2f} ms "
+            f"({dt:.1f} s with the model load; {card})")
+    (tok1, pcm1), (tok4, pcm4) = res[1], res[T4]
+    L4 = tok4.shape[-1]
+    with torch.no_grad():
+        model_f, params_f, vq_f = serving_weights(hps, ckpt_path=ckpt,
+                                                  device="cuda")
+        z = model_f.codec.encoder.apply(
+            params_f["encoder"],
+            torch.from_numpy(wav[:L4 * hop]).to(model_f.device)[None, None])
+    rep = rvq.token_parity_report(
+        torch.from_numpy(tok4[:, 0].astype(np.int64)),
+        torch.from_numpy(tok1[:, 0, :L4].astype(np.int64)),
+        z[0].T, vq_f["embed"])
+    if not rep["ok"]:
+        raise AssertionError(f"infer -f {T4} tokens differ from -f 1 beyond "
+                             f"ties: {rep}")
+    diff = (tok4[:, 0] != tok1[:, 0, :L4]).any(0)
+    upto = (int(np.argmax(diff)) if diff.any() else L4) * hop
+    lsb = int(np.abs(pcm4[:upto] - pcm1[:upto]).max())
+    if lsb > PCM_TOL_LSB:
+        raise AssertionError(f"infer -f {T4} PCM off -f 1 by {lsb} steps")
+    log(f"[tools] infer -f {T4} against -f 1: token mismatches "
+        f"{rep['mismatches']} (ties {rep['ties']}); PCM max |diff| {lsb} "
+        f"int16 steps (tolerance {PCM_TOL_LSB})")
+
+    # (c) eval, model mode on the streaming drivers and degraded mode
+    ref_dir = os.path.join(tmp, "eval_ref")
+    os.makedirs(ref_dir)
+    for i, w in enumerate(speech_batch(np.random.default_rng(SEED + 61),
+                                       EVAL_FILES, sr)):
+        write_wav(os.path.join(ref_dir, f"e{i}.wav"), w[0], sr)
+    text, dt = in_process(tools_eval.main, [
+        "-c", cfg, "--ckpt", ckpt, "-i", ref_dir, "--stream",
+        "-m", "sisdr,stoi,mcd,pesq"])
+    got = dict(re.findall(r"^(\w+): ([-\d.]+) \+/- [\d.na]+ \(95% CI, "
+                          rf"n={EVAL_FILES}\)", text, re.M))
+    if set(got) != {"sisdr", "stoi", "mcd", "pesq"}:
+        raise AssertionError(f"eval model mode printed {got}")
+    log(f"[tools] eval model mode --stream on {EVAL_FILES} files in "
+        f"{dt:.1f} s ({card})")
+    launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    deg_dir = os.path.join(tmp, "eval_deg")
+    os.makedirs(deg_dir)
+    os.replace(os.path.join(tmp, "infer_f1_output.wav"),
+               os.path.join(deg_dir, "tools_in.wav"))
+    text, dt = in_process(tools_eval.main, [
+        "-i", inp, "-d", deg_dir, "-m", "sisdr,stoi,mcd,pesq"])
+    if len(re.findall(r"\(95% CI, n=1\)", text)) != 4:
+        raise AssertionError("eval degraded mode printed no score")
+    log(f"[tools] rvq_cascade launches over the deploy-npz engine's client, "
+        f"infer -f 1 and -f {T4} and eval model mode: {launches}")
+    if launches == 0:
+        raise AssertionError("the tools launched no rvq_cascade")
+
+    # (d) the frame kernels at t = 4
+    t4 = phase_frame_t4(model_f, params_f, vq_f, card)
+    del model_f, params_f, vq_f, model, params, vq_state
+
+    # (e) the train CLI with its summaries, and (f) the checkpoint GC
+    phase_train_summaries(tmp, card)
+    base = os.path.join(tmp, "logs")
+    out, _ = cli("clean_checkpoint", [base, "--dry-run"])
+    listed = [ln for ln in out.splitlines() if ln.startswith("would remove")]
+    want = [f"would remove {os.path.join(base, 'smoke', '00001.ckpt.npz')}"]
+    if listed != want or not os.path.exists(ckpt):
+        raise AssertionError(f"clean_checkpoint --dry-run listed {listed}")
+    log(f"[tools] clean_checkpoint --dry-run: {out.strip()}")
+    return {"launches": launches, "t4": t4}
+
+
+def phase_frame_t4(model, params, vq_state, card):
+    """(d) encode_stream / decode_stream(megakernel=True, frames_per_step=4)
+    at 16 and 128 streams against the plain drivers at 4 frames a step:
+    tokens exact or ties, PCM on the same tokens within PCM_TOL_LSB, one
+    launch of each frame kernel per 4 frames; each kernel timed at t = 4
+    beside its plain version and its bound. Returns {kernel: (launches at
+    128 streams, ms, plain ms, bound (ms, by))} at 128 streams."""
+    import torch
+    from hilcodec_tpu_torch.models.codec import (_decoder_megakernel,
+                                                 _encoder_megakernel)
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+    from hilcodec_tpu_torch.ops import encoder_kernel as EK
+    from hilcodec_tpu_torch.ops import rvq
+
+    hop, books = model.hop_length, vq_state["embed"]
+    out = {}
+    for B in (SERVE_SLOTS, PATH_STREAMS):
+        wav = torch.from_numpy(speech_batch(
+            np.random.default_rng(SEED + B), B, T4_FRAMES * hop)).to(
+                model.device)
+        with torch.no_grad():
+            ce, cd = model.init_cache(B)
+            DK.reset_launches()
+            EK.reset_launches()
+            tok, _ = model.encode_stream(params, vq_state, wav, ce,
+                                         frames_per_step=T4, megakernel=True)
+            y, _ = model.decode_stream(params, vq_state, tok, cd,
+                                       frames_per_step=T4, megakernel=True)
+            torch.cuda.synchronize()
+            launches = {DK.KERNEL: DK.LAUNCHES[DK.KERNEL],
+                        EK.KERNEL: EK.LAUNCHES[EK.KERNEL]}
+            ref_tok, _ = model.encode_stream(params, vq_state, wav, ce,
+                                             frames_per_step=T4)
+            ref_y, _ = model.decode_stream(params, vq_state, tok, cd,
+                                           frames_per_step=T4)
+            z = model.codec.encoder.apply(params["encoder"], wav)
+        rep = rvq.token_parity_report(tok, ref_tok, z.transpose(1, 2), books)
+        q = [torch.clamp(torch.round(o * 32768.0), -32768, 32767).long()
+             for o in (y, ref_y)]
+        lsb = int((q[0] - q[1]).abs().max())
+        if any(v != T4_FRAMES // T4 for v in launches.values()) \
+                or not rep["ok"] or lsb > PCM_TOL_LSB \
+                or not torch.isfinite(y).all():
+            raise AssertionError(f"frame kernels at t={T4}, B={B}: launches "
+                                 f"{launches}, tokens {rep}, PCM {lsb}")
+        log(f"[t4] B={B} x {T4_FRAMES} frames, {T4} frames a launch: "
+            f"launches {launches}; tokens vs the plain drivers: mismatches "
+            f"{rep['mismatches']} (ties {rep['ties']}); PCM on the same "
+            f"tokens max |diff| {lsb} int16 steps (tolerance {PCM_TOL_LSB})")
+        # one launch at t = 4 on the first step's inputs, timed
+        dm = _decoder_megakernel(model.codec.decoder)
+        em = _encoder_megakernel(model.codec.encoder)
+        q4 = rvq.dequantize(tok[:, :, :T4], books)          # [B, 4, 128]
+        ring, window, aux = em.frame_inputs(
+            em.init_cache(B, device=model.device)[0], wav[:, :, :T4 * hop])
+        for name, mk, p, x, a, caches in (
+                (DK.KERNEL, dm, params["decoder"], q4.contiguous(), [],
+                 dm.init_cache(B, device=model.device)),
+                (EK.KERNEL, em, params["encoder"], window.contiguous(), aux,
+                 em.init_cache(B, device=model.device)[1:])):
+            w = mk.weights(p)
+            ms = cuda_ms(lambda: mk.run(p, x, a, caches), repeats=20)
+            plain_ms = cuda_ms(lambda: DK.run_plain(mk.ops, w.per_op, x, a,
+                                                    caches), repeats=20)
+            bounds, flops, _ = frame_bound_ms(mk, w, x, a, caches)
+            log(f"[t4] {name} B={B} t={T4}: {ms:.4f} ms a launch "
+                f"({ms / T4:.4f} ms a frame), plain {plain_ms:.4f} ms, "
+                f"bound {bounds['tc'][0]:.4f} ms ({bounds['tc'][1]}; "
+                f"{flops / B / 1e6:.1f} MFLOP a stream) ({card})")
+            if B == PATH_STREAMS:
+                out[name] = (launches[name], ms, plain_ms, bounds["tc"])
+    return out
+
+
+def phase_train_summaries(tmp, card):
+    """(e) The train CLI for one epoch (run smoke_tb) with the histograms,
+    the infer epoch and SI-SDR on the pesq filelist at interval 1: event
+    files under train/ and valid/ carrying them, or, where a package is
+    missing, the loop's one line naming what it does not write."""
+    import yaml
+    from hilcodec_tpu_torch.utils import summarize as S
+
+    with open(os.path.join(tmp, "config.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    valid = os.path.join(tmp, "valid.txt")
+    cfg["data"]["filelists"].update(infer=valid, pesq=valid)
+    cfg["data"]["num_infer"] = 2
+    cfg["train"]["plot_param_and_grad"] = True
+    cfg["infer"] = {"interval": 1, "batch_size": 1}
+    cfg["pesq"] = {"interval": 1, "batch_size": 2, "num_workers": 0,
+                   "metrics_to_calculate": {"pesq": False, "stoi": False,
+                                            "sisdr": True}}
+    path = os.path.join(tmp, "config_summaries.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    base = os.path.join(tmp, "logs")
+    out, dt = cli("train", ["-n", "smoke_tb", "-b", base, "-c", path])
+    for ln in out.strip().splitlines()[-8:]:
+        log(f"[train-tb]   {ln[-160:]}")
+    absent = S.missing()
+    notice = [ln for ln in out.splitlines() if ln.startswith("TrainLoop:")]
+    if absent and len(notice) != 1:
+        raise AssertionError(f"{absent} missing, but the loop said {notice}")
+    if "metric/sisdr" not in out:
+        raise AssertionError("the pesq epoch wrote no metric/sisdr")
+    run = os.path.join(base, "smoke_tb")
+    if "tensorboard" in absent:
+        log(f"[train-tb] no tensorboard: {notice[0]}")
+        return
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+    tags = {}
+    for part in ("train", "valid"):
+        ea = EventAccumulator(os.path.join(run, part), size_guidance={
+            "scalars": 0, "histograms": 0, "images": 0, "audio": 0})
+        ea.Reload()
+        tags[part] = ea.Tags()
+    want_images = 0 if "matplotlib" in absent else 4
+    if not (tags["train"]["histograms"] and "loss/freq" in
+            tags["train"]["scalars"] and "metric/sisdr" in
+            tags["valid"]["scalars"] and len(tags["valid"]["audio"]) == 4
+            and len(tags["valid"]["images"]) == want_images):
+        raise AssertionError(f"event files lack the summaries: {tags}")
+    log(f"[train-tb] one epoch in {dt:.1f} s ({card}); event files: train "
+        f"{len(tags['train']['scalars'])} scalars, "
+        f"{len(tags['train']['histograms'])} histograms; valid "
+        f"{len(tags['valid']['scalars'])} scalars, "
+        f"{len(tags['valid']['audio'])} audio, "
+        f"{len(tags['valid']['images'])} images"
+        + (f"; {notice[0]}" if notice else ""))
 
 
 def main() -> int:
@@ -1376,7 +1762,7 @@ def main() -> int:
     frame_launches = phase_frame_path(model, params, vq_state)
     phase_bench()
     del model, params, vq_state
-    train = phase_train(line)
+    train, tools = phase_train(line)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -1390,6 +1776,7 @@ def main() -> int:
         "launches": launches,
         "launches_frame_path": frame_launches[rvq_kernel.KERNEL],
         "launches_train_path": train["launches"],
+        "launches_tools_path": tools["launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]
@@ -1401,13 +1788,17 @@ def main() -> int:
         # cores), and beside it the bound with every operation on the f32
         # CUDA cores, the one PR 2's kernel was held to
         ms, plain_ms, bounds = frame_timings[(mod.KERNEL, PATH_STREAMS)]
+        t4_launches, t4_ms, t4_plain_ms, t4_bound = tools["t4"][mod.KERNEL]
         kernels.append({
             "name": mod.KERNEL, "route": "cuda", "source": mod.SOURCE,
             "replaces": replaces, "launches": frame_launches[mod.KERNEL],
             "max_abs_err": frame_err[mod.KERNEL], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bounds["tc"][0],
             "bound_by": bounds["tc"][1], "bound_f32_ms": bounds["f32"][0],
-            "bound_f32_by": bounds["f32"][1], "library_ms": None})
+            "bound_f32_by": bounds["f32"][1], "library_ms": None,
+            "launches_t4": t4_launches, "ms_t4": t4_ms,
+            "plain_ms_t4": t4_plain_ms, "bound_ms_t4": t4_bound[0],
+            "bound_t4_by": t4_bound[1]})
     print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

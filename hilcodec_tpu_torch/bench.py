@@ -2,7 +2,8 @@
 
 Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
-      [--megakernel|--no-megakernel] [--fused] [--dispatch] [--device D]
+      [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
+      [--device D]
 
 The model is the flagship operating point of bench.py: HILCodec defaults
 with both res_scale set, seeded init, N(0, 1) codebooks, 8 quantizers,
@@ -10,8 +11,10 @@ folded params. It times `encode_stream` then `decode_stream` (frame kernels
 with --megakernel; the plain frame step by default, as in the JAX
 package), or `encode_decode_stream` with --fused, over S seconds of audio
 per stream: one warm-up call, then 3 timed calls, each ending in a device
-synchronize. --dispatch times one frame per call instead: blocking p50/p99
-and the pipelined per-frame cost. Runs on CUDA unless --device names
+synchronize. --frames F streams F frames a step (`frames_per_step`; the
+audio is cut to a multiple of F frames), as bench.py's --frames does.
+--dispatch times one frame per call instead: blocking p50/p99 and the
+pipelined per-frame cost. Runs on CUDA unless --device names
 another device, and raises without CUDA.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} with
@@ -41,8 +44,7 @@ REPS = 3
 DISPATCH_BLOCKING = 100
 DISPATCH_PIPELINED = 200
 # bench.py options the port does not have yet
-_NOT_PORTED = ("--mesh", "--dtype", "--depthwise", "--unroll", "--chunks",
-               "--frames")
+_NOT_PORTED = ("--mesh", "--dtype", "--depthwise", "--unroll", "--chunks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +55,7 @@ class Args:
     fused: bool = False
     dispatch: bool = False
     device: Optional[str] = None
+    frames: int = 1
 
 
 def _value(argv: List[str], flag: str) -> str:
@@ -65,8 +68,8 @@ def _value(argv: List[str], flag: str) -> str:
 
 
 def parse_args(argv: List[str]) -> Args:
-    """[streams] [--seconds S] [--megakernel|--no-megakernel] [--fused]
-    [--dispatch] [--device D]; fails fast on malformed or unported
+    """[streams] [--seconds S] [--frames F] [--megakernel|--no-megakernel]
+    [--fused] [--dispatch] [--device D]; fails fast on malformed or unported
     options."""
     argv = list(argv)
     for flag in _NOT_PORTED:
@@ -93,6 +96,18 @@ def parse_args(argv: List[str]) -> Args:
             seconds = float(raw)
         except ValueError:
             sys.exit(f"error: --seconds requires a number, got {raw!r}")
+    frames = 1
+    if "--frames" in argv:
+        raw = _value(argv, "--frames")
+        try:
+            frames = int(raw)
+        except ValueError:
+            sys.exit(f"error: --frames requires an int, got {raw!r}")
+        if frames < 1:
+            sys.exit("error: --frames must be positive")
+        if dispatch and frames != 1:
+            sys.exit("error: --dispatch times one frame a call; it takes "
+                     "no --frames")
     unknown = [a for a in argv if a.startswith("-")]
     if unknown:
         sys.exit(f"error: unknown option {unknown[0]!r}")
@@ -102,7 +117,7 @@ def parse_args(argv: List[str]) -> Args:
         sys.exit(f"error: streams must be an integer, got {argv[0]!r}")
     if streams < 1 or len(argv) > 1:
         sys.exit("error: one positive stream count expected")
-    return Args(streams, seconds, mega, fused, dispatch, device)
+    return Args(streams, seconds, mega, fused, dispatch, device, frames)
 
 
 def build_bench_model(device: torch.device) -> CodecModel:
@@ -140,32 +155,41 @@ def _noise(shape, device: torch.device) -> torch.Tensor:
     return (torch.randn(shape, generator=gen) * 0.3).to(device)
 
 
+def encode_decode(model: CodecModel, params, vq_state, wav, ce, cd,
+                  args: Args):
+    """The timed work: wav -> (tokens, wav_out, cache_enc, cache_dec) through
+    the drivers `args` selects, `args.frames` frames a step."""
+    f = args.frames
+    if args.fused:
+        return model.encode_decode_stream(params, vq_state, wav, ce, cd,
+                                          frames_per_step=f)
+    tok, ce = model.encode_stream(params, vq_state, wav, ce,
+                                  frames_per_step=f,
+                                  megakernel=args.megakernel)
+    out, cd = model.decode_stream(params, vq_state, tok, cd,
+                                  frames_per_step=f,
+                                  megakernel=args.megakernel)
+    return tok, out, ce, cd
+
+
 @torch.no_grad()
 def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     """Aggregate real-time factor of streaming encode+decode."""
     device, hop = model.device, model.hop_length
-    n_frames = int(args.seconds * SAMPLE_RATE) // hop
+    f = args.frames
+    n_frames = int(args.seconds * SAMPLE_RATE) // hop // f * f
     if n_frames < 1:
-        sys.exit(f"error: --seconds {args.seconds} is shorter than a frame")
+        sys.exit(f"error: --seconds {args.seconds} is shorter than "
+                 f"{f} frame(s)")
     wav = _noise((args.streams, 1, n_frames * hop), device)
-
-    def once(ce, cd):
-        if args.fused:
-            _, _, ce, cd = model.encode_decode_stream(params, vq_state, wav,
-                                                      ce, cd)
-            return ce, cd
-        tok, ce = model.encode_stream(params, vq_state, wav, ce,
-                                      megakernel=args.megakernel)
-        _, cd = model.decode_stream(params, vq_state, tok, cd,
-                                    megakernel=args.megakernel)
-        return ce, cd
-
-    ce, cd = once(*model.init_cache(args.streams))    # warm-up
-    _sync(device)
+    *_, ce, cd = encode_decode(model, params, vq_state, wav,
+                               *model.init_cache(args.streams), args)
+    _sync(device)                                     # warm-up
     dt = 0.0
     for _ in range(REPS):
         t0 = time.perf_counter()
-        ce, cd = once(ce, cd)
+        *_, ce, cd = encode_decode(model, params, vq_state, wav, ce, cd,
+                                   args)
         _sync(device)
         dt += time.perf_counter() - t0
     rtf = args.streams * n_frames * hop / SAMPLE_RATE / (dt / REPS)
@@ -174,9 +198,12 @@ def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
         metric += "_megakernel"
     if args.fused:
         metric += "_fused"
+    if f != 1:
+        metric += f"_f{f}"
+    block = f", block={f} frames" if f != 1 else ""
     return {"metric": metric, "value": round(rtf, 2),
             "unit": f"x_realtime_24khz (streams={args.streams}, frame={hop} "
-                    f"samples, device={_device_name(device)})",
+                    f"samples{block}, device={_device_name(device)})",
             "vs_baseline": round(rtf / 100.0, 3)}
 
 

@@ -6,10 +6,11 @@ Python loops over frames (the JAX package's `lax.scan`), one encoder /
 decoder step per frame, with the caches in the JAX order and the JAX
 output shapes (tokens `[n, B, L]`, wav `[B, 1, L*hop]`). The quantizer is
 the CUDA kernel wrapper `ops/rvq_kernel.quantize`, which runs the plain
-version for CPU tensors only. `encode_stream` / `decode_stream` take
-`megakernel=True` to run each frame step as one launch of the encoder /
-decoder frame kernel; it is off by default, as in the JAX package, whose
-automatic choice never selects it.
+version for CPU tensors only. The streaming drivers take
+`frames_per_step` frames a step (1 by default), as the JAX drivers do.
+`encode_stream` / `decode_stream` take `megakernel=True` to run each step
+as one launch of the encoder / decoder frame kernel; it is off by default,
+as in the JAX package, whose automatic choice never selects it.
 """
 
 from __future__ import annotations
@@ -80,6 +81,19 @@ class CodecModel:
         params = self.codec.init(gen, self.device)
         return params, self.vq.init_state(gen, self.device)
 
+    def seeded(self, random_books: bool = True) -> Tuple[Params, Q.VQState]:
+        """Weights for a run without a checkpoint: `init` from seed 0 and,
+        with random_books, N(0, 1) codebooks drawn after it from the same
+        generator (the JAX CLIs' untrained operating point; no torch
+        generator reproduces JAX's draws)."""
+        gen = torch.Generator().manual_seed(0)
+        params, vq_state = self.init(gen)
+        if random_books:
+            vq_state["embed"] = torch.randn(
+                tuple(vq_state["embed"].shape), generator=gen
+            ).to(self.device)
+        return params, vq_state
+
     def param_template(self, folded: bool) -> Params:
         """A param tree with this model's names and shapes (CPU tensors)."""
         params = self.codec.init(torch.Generator().manual_seed(0))
@@ -118,28 +132,41 @@ class CodecModel:
         return self.codec.decoder.apply(params["decoder"], q.transpose(1, 2))
 
     # -- streaming ----------------------------------------------------------
-    def _frames(self, wav: torch.Tensor) -> List[torch.Tensor]:
+    def _blocks(self, wav: torch.Tensor, frames_per_step: int
+                ) -> List[torch.Tensor]:
+        """wav [B, 1, L*hop] -> L / f steps of [B, 1, f*hop]."""
         hop = self.hop_length
-        return [wav[:, :, t * hop:(t + 1) * hop]
-                for t in range(wav.shape[-1] // hop)]
+        L = wav.shape[-1] // hop
+        if frames_per_step < 1 or L % frames_per_step:
+            raise ValueError(f"{L} frames are not a multiple of "
+                             f"frames_per_step={frames_per_step}")
+        n = frames_per_step * hop
+        return [wav[:, :, i * n:(i + 1) * n]
+                for i in range(L // frames_per_step)]
 
     def encode_stream(self, params: Params, vq_state: Q.VQState,
                       wav: torch.Tensor, cache: Cache,
-                      n: Optional[int] = None, megakernel: bool = False
+                      n: Optional[int] = None, frames_per_step: int = 1,
+                      megakernel: bool = False
                       ) -> Tuple[torch.Tensor, Cache]:
         """wav [B, 1, L*hop] -> (tokens [n, B, L], new_cache).
 
-        megakernel=True runs each frame's encoder step as one launch of the
+        Each step takes frames_per_step (f) frames: L must be a multiple of
+        f, each step sees f*hop samples, and the token and cache shapes do
+        not depend on f. The JAX driver's `unroll` and `stream_chunks` are
+        XLA scheduling knobs and have no counterpart here.
+
+        megakernel=True runs each step's encoder as one launch of the
         encoder frame kernel (ops/encoder_kernel.py; its plain version for
-        CPU tensors), on folded params; the cache list handed in and out
-        keeps its order and shapes."""
+        CPU tensors) over f frames, on folded params; the cache list handed
+        in and out keeps its order and shapes."""
         books = vq_state["embed"]
         step = self.codec.encoder.step
         if megakernel:
             mk = _encoder_megakernel(self.codec.encoder)
             cache, step = mk.cache_to_time_major(cache), mk.step
         toks = []
-        for x in self._frames(wav):
+        for x in self._blocks(wav, frames_per_step):
             z, cache = step(params["encoder"], cache, x)
             toks.append(rvq_kernel.quantize(z.transpose(1, 2), books, n))
         if megakernel:
@@ -148,22 +175,28 @@ class CodecModel:
 
     def decode_stream(self, params: Params, vq_state: Q.VQState,
                       tokens: torch.Tensor, cache: Cache,
-                      megakernel: bool = False) -> Tuple[torch.Tensor, Cache]:
+                      frames_per_step: int = 1, megakernel: bool = False
+                      ) -> Tuple[torch.Tensor, Cache]:
         """tokens [n, B, L] -> (wav [B, 1, L*hop], new_cache).
 
-        megakernel=True runs each frame's decoder step as one launch of the
-        decoder frame kernel (ops/decoder_kernel.py; its plain version for
-        CPU tensors), on folded params; the cache list handed in and out
-        keeps its order and shapes."""
+        frames_per_step (f) frames a step, L a multiple of f (see
+        encode_stream). megakernel=True runs each step's decoder as one
+        launch of the decoder frame kernel (ops/decoder_kernel.py; its
+        plain version for CPU tensors) over f frames, on folded params; the
+        cache list handed in and out keeps its order and shapes."""
         books = vq_state["embed"]
         dtype = cache[0].dtype if cache else torch.float32
+        L, f = tokens.shape[-1], frames_per_step
+        if f < 1 or L % f:
+            raise ValueError(f"{L} frames are not a multiple of "
+                             f"frames_per_step={f}")
         step = self.codec.decoder.step
         if megakernel:
             mk = _decoder_megakernel(self.codec.decoder)
             cache, step = mk.cache_to_time_major(cache), mk.step
         outs = []
-        for t in range(tokens.shape[-1]):
-            q = Q.dequantize(tokens[:, :, t:t + 1], books).to(dtype)
+        for t in range(0, L, f):
+            q = Q.dequantize(tokens[:, :, t:t + f], books).to(dtype)
             y, cache = step(params["decoder"], cache, q.transpose(1, 2))
             outs.append(y)
         if megakernel:
@@ -172,17 +205,19 @@ class CodecModel:
 
     def encode_decode_stream(self, params: Params, vq_state: Q.VQState,
                              wav: torch.Tensor, cache_enc: Cache,
-                             cache_dec: Cache, n: Optional[int] = None
+                             cache_dec: Cache, n: Optional[int] = None,
+                             frames_per_step: int = 1
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         Cache, Cache]:
-        """Per frame: encoder step -> RVQ -> dequantize -> decoder step.
+        """Per step of frames_per_step frames: encoder step -> RVQ ->
+        dequantize -> decoder step.
 
         wav [B, 1, L*hop] -> (tokens [n, B, L], wav_out [B, 1, L*hop],
         new cache_enc, new cache_dec)."""
         books = vq_state["embed"]
         dtype = cache_dec[0].dtype if cache_dec else torch.float32
         toks, outs = [], []
-        for x in self._frames(wav):
+        for x in self._blocks(wav, frames_per_step):
             z, cache_enc = self.codec.encoder.step(params["encoder"],
                                                    cache_enc, x)
             idx = rvq_kernel.quantize(z.transpose(1, 2), books, n)

@@ -2,31 +2,53 @@
 frame step over a fixed slot batch (see serve/engine.py).
 
 Usage:
-  python -m hilcodec_tpu_torch.serve -c CONFIG [--params DEPLOY_NPZ]
-      [--slots S] [--mode roundtrip|encode|decode] [-n N_QUANTIZERS]
+  python -m hilcodec_tpu_torch.serve -c CONFIG
+      [--params DEPLOY_NPZ | --ckpt CKPT] [--slots S]
+      [--mode roundtrip|encode|decode] [-n N_QUANTIZERS]
       [--host H] [--port P] [--gather-ms MS] [--device DEV]
 
-`--params` loads a `{name}_deploy.npz` written by the JAX package's
-`export.py` (folded params + codebooks). Without it the server runs seeded
-random weights and N(0, 1) codebooks, for latency and throughput only.
+`--params` loads a `{name}_deploy.npz` (folded params + codebooks) written
+by `python -m hilcodec_tpu_torch.export` or the JAX package's `export.py`;
+`--ckpt` loads a train checkpoint (`{epoch:05d}.ckpt.npz` of either
+package) through the trainer's initial state and folds it. Without either
+the server runs seeded random weights and N(0, 1) codebooks, for latency
+and throughput only.
 """
 
 import argparse
 import asyncio
 
-import torch
-
 from ..models.registry import build_codec_model
+from ..utils.checkpoint import load_codec
 from ..utils.hparams import load_config
 from ..utils.params import load_deploy_npz
 from . import SlotEngine, serve_forever
 
 
+def serving_weights(hps, params_path=None, ckpt_path=None, device=None):
+    """(model, params, vq_state) to serve: a deploy npz as it was written
+    (folded by export), or a train checkpoint, or (with neither) seeded
+    random weights, folded."""
+    if params_path:
+        model = build_codec_model(hps.get("model", "hilcodec"),
+                                  hps.model_kwargs.to_dict(), device=device)
+        return (model,) + load_deploy_npz(params_path, model, model.device)
+    if not ckpt_path:
+        print("WARNING: no --params or --ckpt given — serving UNTRAINED "
+              "random weights (latency/throughput bench mode; audio output "
+              "is garbage)", flush=True)
+    model, params, vq_state = load_codec(hps, ckpt_path, device)
+    return model, model.fold_params(params), vq_state
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m hilcodec_tpu_torch.serve")
     p.add_argument("-c", "--config", required=True)
-    p.add_argument("--params", default=None,
-                   help="JAX {name}_deploy.npz (folded params + codebooks)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--params", default=None,
+                     help="{name}_deploy.npz (folded params + codebooks)")
+    src.add_argument("--ckpt", default=None,
+                     help="train checkpoint {epoch:05d}.ckpt.npz")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=0,
                    help="0 = pick a free port (printed at startup)")
@@ -42,25 +64,12 @@ def main(argv=None):
     ns = p.parse_args(argv)
 
     hps = load_config(ns.config)
-    model = build_codec_model(hps.get("model", "hilcodec"),
-                              hps.model_kwargs.to_dict(), device=ns.device)
-    if ns.params:
-        params, vq_state = load_deploy_npz(ns.params, model, model.device)
-        fold = False
-    else:
-        gen = torch.Generator().manual_seed(0)
-        params, vq_state = model.init(gen)
-        vq_state["embed"] = torch.randn(
-            tuple(vq_state["embed"].shape), generator=gen
-        ).to(model.device)
-        fold = True
-        print("WARNING: no --params given — serving UNTRAINED random weights "
-              "(latency/throughput bench mode; audio output is garbage)",
-              flush=True)
+    model, params, vq_state = serving_weights(hps, ns.params, ns.ckpt,
+                                              ns.device)
     print(f"building {ns.slots}-slot engine (mode={ns.mode}) on "
           f"{model.device}...", flush=True)
     engine = SlotEngine(model, params, vq_state, slots=ns.slots,
-                        n=ns.num_quantizers, mode=ns.mode, fold=fold,
+                        n=ns.num_quantizers, mode=ns.mode, fold=False,
                         device=model.device)
     dt = engine.warmup()
     print(f"warmup done in {dt:.1f}s", flush=True)

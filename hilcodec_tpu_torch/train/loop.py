@@ -1,19 +1,28 @@
 """The training loop (`hilcodec_tpu/train/loop.py`), one device.
 
 `build_trainer(hps, device)` builds the HILCodec GAN trainer from a config;
-`TrainLoop` runs epochs of train steps on a DirectoriesDataset (k-means
-init of the codebooks on the first batch), a validation pass when the
-config has a valid filelist, the ReduceLROnPlateau host update, and
-checkpoints in the JAX package's `.ckpt.npz` layout with resume from the
-newest. TensorBoard summaries, parameter histograms, the infer and pesq
-epochs and multi-process training are not ported yet.
+`TrainLoop` runs epochs in the JAX loop's order: the train steps on a
+DirectoriesDataset (k-means init of the codebooks on the first batch;
+with `train.plot_param_and_grad`, parameter and gradient histograms of the
+epoch's last batch), a validation pass when the config has a valid
+filelist, the ReduceLROnPlateau host update, every `pesq.interval` epochs
+the objective metrics of the pesq filelist (`metric/{name}`), every
+`infer.interval` epochs the infer filelist's reconstructions at
+`train.infer_n` quantizers (audio and log-mel images), and checkpoints in
+the JAX package's `.ckpt.npz` layout with resume from the newest.
+
+Summaries go to TensorBoard under `{run_dir}/train` and `{run_dir}/valid`.
+Where `tensorboard` (every summary) or `matplotlib` (the images) is not
+installed, the loop names in one line at start what it will not write,
+and trains on. Multi-process training is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,9 +32,14 @@ from ..data.loader import get_dataset_dataloader
 from ..models.discriminators import Discriminators
 from ..models.losses import MelLoss
 from ..models.registry import build_codec_model
+from ..ops import mel as M
+from ..ops import stft as ST
+from ..ops.rvq import RVQDraws
 from ..utils import checkpoint as ckpt
+from ..utils import summarize as S
 from .balancer import Balancer
 from .grad_clip import make_clipper
+from .metrics import Metrics
 from .optim import make_optimizer
 from .schedulers import ReduceLROnPlateau, make_scheduler
 from .step import Trainer, TrainState, metrics_to_host, to_device
@@ -132,6 +146,20 @@ class TrainLoop:
                 hps, "valid", ["wav"])
         except (FileNotFoundError, KeyError, AttributeError):
             self.valid_ds = self.valid_loader = None
+        # what an epoch cannot do for want of data, named at start
+        self._no_data: List[str] = []
+        self.infer_loader = self._eval_loader("infer", ["wav", "filename"])
+        pesq = hps.get("pesq", {})
+        self.metrics = Metrics(
+            pesq.get("metrics_to_calculate", {}) or {},
+            sampling_rate=hps.data.sampling_rate,
+            num_workers=pesq.get("num_workers_executor", 4))
+        self.pesq_loader = (self._eval_loader("pesq", ["wav"])
+                            if self.metrics.enabled else None)
+        self.plot_param_and_grad = hps.train.get("plot_param_and_grad",
+                                                 False)
+        self.writer_train = self.writer_valid = None
+        self._images = False
         sched = self.trainer.sched_g
         self.plateau = sched if isinstance(sched, ReduceLROnPlateau) \
             else None
@@ -139,6 +167,14 @@ class TrainLoop:
             else None
         self.scheduler_metric = hps.train.get("scheduler_metric",
                                               "loss/freq")
+
+    def _eval_loader(self, mode: str, keys: List[str]):
+        try:
+            return get_dataset_dataloader(self.hps, mode, keys)[1]
+        except (FileNotFoundError, KeyError, AttributeError) as e:
+            self._no_data.append(f"the {mode} epoch (no {mode} data: "
+                                 f"{type(e).__name__} {e})")
+            return None
 
     # -- state ----------------------------------------------------------------
     def init_or_resume(self) -> None:
@@ -151,6 +187,9 @@ class TrainLoop:
         self.state, extras = ckpt.load_checkpoint(path, self.state)
         self.epoch = int(extras.get("epoch", epoch))
         self.iteration = int(self.state.iteration)
+        self.metrics.load_state_dict({k[5:]: float(v)
+                                      for k, v in extras.items()
+                                      if k.startswith("best_")})
         if self.plateau_state is not None:
             for k in list(self.plateau_state):
                 if f"plateau_{k}" in extras:
@@ -161,6 +200,8 @@ class TrainLoop:
 
     def save(self) -> str:
         extra: Dict[str, Any] = {"epoch": self.epoch}
+        for k, v in self.metrics.state_dict().items():
+            extra[f"best_{k}"] = v
         for k, v in (self.plateau_state or {}).items():
             extra[f"plateau_{k}"] = v
         return ckpt.save_checkpoint(self.run_dir, self.epoch, self.state,
@@ -186,9 +227,12 @@ class TrainLoop:
         wav = batch["wav"]
         return wav[:, None, :] if wav.ndim == 2 else wav
 
-    def train_epoch(self) -> Dict[str, float]:
+    def train_epoch(self, hists: Optional[Dict[str, np.ndarray]] = None
+                    ) -> Dict[str, float]:
         """One pass of the train loader; the metrics of each step are read
-        to the host in one copy, in groups of up to 10 steps."""
+        to the host in one copy, in groups of up to 10 steps. With
+        plot_param_and_grad and a `hists` dict, the histograms of the
+        last batch go into it."""
         t0 = time.time()
         sums: Dict[str, float] = {}
         counts: Dict[str, float] = {}
@@ -217,8 +261,12 @@ class TrainLoop:
                 self.initialize_vq(wav)
             draws = self.trainer.sample_draws(
                 step_generator(self.seed, self.iteration), wav.shape)
-            self.state, m = self.trainer.train_step(
-                self.state, to_device(wav, self.device), draws)
+            wav_t = to_device(wav, self.device)
+            if idx == n_steps and self.plot_param_and_grad \
+                    and hists is not None:
+                self._param_and_grad_hists(hists, wav_t, draws)
+            self.state, m = self.trainer.train_step(self.state, wav_t,
+                                                    draws)
             self.iteration += 1
             pending.append((wav.shape[0], m))
             if idx % 10 == 0 or idx == n_steps:
@@ -226,8 +274,9 @@ class TrainLoop:
                 line = f"Epoch {self.epoch} - Train {idx}/{n_steps}"
                 for k, v in sums.items():
                     line += f"  {k.split('/')[1]}: {v / counts[k]:.3f}"
-                print(line + f"  lr: {last['lr']:.2e}", flush=True)
+                S.progress_line(line + f"  lr: {last['lr']:.2e}")
         flush()
+        print()
         scalars = {k: v / max(counts[k], 1) for k, v in sums.items()}
         scalars["lr"] = last.get("lr", 0.0)
         scalars["epoch_time"] = time.time() - t0
@@ -236,6 +285,17 @@ class TrainLoop:
         # the per-epoch scheduler clock
         self.state = self.state._replace(epoch=self.state.epoch + 1)
         return scalars
+
+    def _param_and_grad_hists(self, hists: Dict[str, np.ndarray],
+                              wav: torch.Tensor, draws: RVQDraws) -> None:
+        """The step's gradients on this batch with this step's draws,
+        computed once more before the step, and the parameters into
+        `hists`."""
+        aux = self.trainer.compute_grads(self.state, wav, draws)
+        S.plot_param_and_grad(hists, self.state.params_g, aux["g_grads"],
+                              "model")
+        S.plot_param_and_grad(hists, self.state.params_d, aux["d_grads"],
+                              "disc")
 
     def valid_epoch(self) -> Dict[str, float]:
         if self.valid_loader is None:
@@ -251,31 +311,153 @@ class TrainLoop:
                 sums[k] = sums.get(k, 0.0) + v * wav.shape[0]
         return {k: v / max(n_items, 1) for k, v in sums.items()}
 
+    def _log_mel(self, wav: np.ndarray) -> np.ndarray:
+        """The log-mel image of an infer epoch: the loss STFT (reflect pad
+        of (n_fft - hop) / 2, periodic Hann of win_size centred in n_fft),
+        magnitude, mel filterbank, log of the clipped mel."""
+        d = self.hps.data
+        n_fft, hop, win = d.n_fft, d.hop_size, d.win_size
+        p = (n_fft - hop) // 2
+        x = np.pad(np.asarray(wav, np.float32), (p, p), mode="reflect")
+        window = np.zeros(n_fft, np.float32)
+        window[(n_fft - win) // 2:(n_fft - win) // 2 + win] = \
+            ST.hann_window_np(win)
+        n = 1 + (len(x) - n_fft) // hop
+        frames = x[np.arange(n)[:, None] * hop + np.arange(n_fft)] * window
+        mag = np.abs(np.fft.rfft(frames, axis=-1)).T.astype(np.float32)
+        basis = M.mel_filterbank(d.sampling_rate, n_fft,
+                                 d.get("num_mels", 80))
+        return np.log(np.clip(basis @ mag, d.get("clip_val", 1e-5), None))
+
+    def _reconstruct(self, wav: np.ndarray) -> np.ndarray:
+        """The codec's forward at train.infer_n quantizers (all when
+        unset), no update: [B, 1, T] -> [B, 1, T] on the host."""
+        n = self.hps.train.get("infer_n", None)
+        with torch.no_grad():
+            wav_g, _, _, _ = self.trainer.model.forward(
+                self.state.params_g, self.state.vq_state,
+                to_device(wav, self.device),
+                RVQDraws(n) if n else None, training=False)
+        return wav_g.cpu().numpy()
+
+    def infer_epoch(self) -> Tuple[Dict[str, np.ndarray],
+                                   Dict[str, np.ndarray]]:
+        """(audios, log-mel images) of the infer filelist's
+        reconstructions; the ground truth too in the first epoch."""
+        if self.infer_loader is None:
+            return {}, {}
+        audios: Dict[str, np.ndarray] = {}
+        specs: Dict[str, np.ndarray] = {}
+        for i, batch in enumerate(self.infer_loader):
+            wav = self._batch_wav(batch)
+            wav_g = self._reconstruct(wav)
+            audios[f"gen/wav_{i}"] = wav_g[0, 0]
+            specs[f"gen/mel_{i}"] = self._log_mel(wav_g[0, 0])
+            if self.epoch <= 1:
+                audios[f"gt/wav_{i}"] = wav[0, 0]
+                specs[f"gt/mel_{i}"] = self._log_mel(wav[0, 0])
+        return audios, specs
+
+    def pesq_epoch(self) -> Dict[str, float]:
+        """The enabled objective metrics (`pesq.metrics_to_calculate`) of
+        the pesq filelist's reconstructions; none enabled, nothing run."""
+        if self.pesq_loader is None:
+            return {}
+        self.metrics.initialize()
+        for batch in self.pesq_loader:
+            wav = self._batch_wav(batch)
+            self.metrics.submit(wav[:, 0], self._reconstruct(wav)[:, 0])
+        return self.metrics.retrieve()
+
+    def _open_writers(self) -> None:
+        """The train / valid writers; one line naming what will not be
+        written, where a package or an epoch's data is missing."""
+        absent = S.missing()
+        lost = list(self._no_data)
+        if "tensorboard" in absent:
+            what = "the train and valid scalars, metric/*, "
+            if self.plot_param_and_grad:
+                what += ("the parameter and gradient histograms "
+                         "(plot_param_and_grad), ")
+            lost.insert(0, what + "the infer epoch's audio and log-mel "
+                        "images (tensorboard is not installed)")
+            self.plot_param_and_grad = False
+        else:
+            self.writer_train = S.get_writer(os.path.join(self.run_dir,
+                                                          "train"))
+            self.writer_valid = S.get_writer(os.path.join(self.run_dir,
+                                                          "valid"))
+            if "matplotlib" in absent:
+                lost.insert(0, "the infer epoch's log-mel images "
+                            "(matplotlib is not installed)")
+        self._images = not absent
+        if lost:
+            print(f"TrainLoop: not writing {'; '.join(lost)}", flush=True)
+
+    def _close(self) -> None:
+        self.metrics.close()
+        for w in (self.writer_train, self.writer_valid):
+            if w is not None:
+                w.close()
+        self.writer_train = self.writer_valid = None
+
     def run(self, max_epochs: Optional[int] = None) -> None:
-        max_epochs = max_epochs or self.hps.train.max_epochs
+        hps = self.hps
+        max_epochs = max_epochs or hps.train.max_epochs
         if self.state is None:
             self.init_or_resume()
-        save_interval = self.hps.train.get("save_interval", 1)
-        while self.epoch < max_epochs:
-            self.epoch += 1
-            if hasattr(self.train_ds, "shuffle"):
-                self.train_ds.shuffle(self.seed + self.epoch)
-            scalars = self.train_epoch()
-            print(f"Epoch {self.epoch} train: " + ", ".join(
-                f"{k} {v:.4g}" for k, v in scalars.items()), flush=True)
-            valid = self.valid_epoch()
-            if valid:
-                print(f"Epoch {self.epoch} valid: " + ", ".join(
-                    f"{k} {v:.4g}" for k, v in valid.items()), flush=True)
-            if self.plateau is not None:
-                metric = valid.get(self.scheduler_metric,
-                                   scalars.get(self.scheduler_metric))
-                if metric is not None:
-                    self.plateau_state = self.plateau.update(
-                        self.plateau_state, metric,
-                        base_lr=self.trainer.lr_g)
-                    self.state = self.state._replace(lr_scale=torch.full(
-                        (), self.plateau_state["scale"],
-                        device=self.device))
-            if self.epoch % save_interval == 0:
-                print(f"saved {self.save()}", flush=True)
+        self._open_writers()
+        infer_interval = hps.get("infer", {}).get("interval", 10)
+        pesq_interval = hps.get("pesq", {}).get("interval", 1000)
+        save_interval = hps.train.get("save_interval", 1)
+        try:
+            while self.epoch < max_epochs:
+                self.epoch += 1
+                if hasattr(self.train_ds, "shuffle"):
+                    self.train_ds.shuffle(self.seed + self.epoch)
+                hists: Dict[str, np.ndarray] = {}
+                scalars = self.train_epoch(hists)
+                print(f"Epoch {self.epoch} train: " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in scalars.items()), flush=True)
+                if self.writer_train is not None:
+                    S.summarize(self.writer_train, self.epoch, scalars,
+                                hists=hists or None, echo=False)
+                valid = self.valid_epoch()
+                if valid:
+                    print(f"Epoch {self.epoch} valid: " + ", ".join(
+                        f"{k} {v:.4g}" for k, v in valid.items()),
+                        flush=True)
+                    if self.writer_valid is not None:
+                        S.summarize(self.writer_valid, self.epoch, valid,
+                                    echo=False)
+                if self.plateau is not None:
+                    metric = valid.get(self.scheduler_metric,
+                                       scalars.get(self.scheduler_metric))
+                    if metric is not None:
+                        self.plateau_state = self.plateau.update(
+                            self.plateau_state, metric,
+                            base_lr=self.trainer.lr_g)
+                        self.state = self.state._replace(
+                            lr_scale=torch.full(
+                                (), self.plateau_state["scale"],
+                                device=self.device))
+                if self.epoch % pesq_interval == 0:
+                    for k, v in self.pesq_epoch().items():
+                        print(f"Epoch {self.epoch} metric/{k} {v:.4g}",
+                              flush=True)
+                        if self.writer_valid is not None:
+                            self.writer_valid.add_scalar(f"metric/{k}", v,
+                                                         self.epoch)
+                if self.epoch % infer_interval == 0 \
+                        and self.writer_valid is not None:
+                    audios, specs = self.infer_epoch()
+                    if audios:
+                        S.summarize(self.writer_valid, self.epoch,
+                                    audios=audios,
+                                    specs=specs if self._images else None,
+                                    sampling_rate=hps.data.sampling_rate,
+                                    echo=False)
+                if self.epoch % save_interval == 0:
+                    print(f"saved {self.save()}", flush=True)
+        finally:
+            self._close()

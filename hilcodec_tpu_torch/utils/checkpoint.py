@@ -8,13 +8,16 @@ package loads in the other (`np.load` reads the JAX package's compressed
 archives and these uncompressed ones alike). The flagship's state is
 about 0.7 GB of f32 weights and Adam moments, which zlib barely shrinks
 and takes tens of seconds to compress, so it is stored uncompressed.
+`load_codec` reads the codec's weights out of one for the tools (export,
+infer, eval, serve); `clean_checkpoints` is the checkpoint GC of
+`python -m hilcodec_tpu_torch.clean_checkpoint`.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -62,3 +65,47 @@ def load_checkpoint(path: str, template: Any
     extras = {k[len("__extra__/"):]: v for k, v in flat.items()
               if k.startswith("__extra__/")}
     return state, extras
+
+
+def load_codec(hps, path: Optional[str] = None, device=None,
+               random_books: bool = True):
+    """(model, params_g, vq_state) of the config's codec, unfolded, on
+    `device` (CUDA when None). With a path, a train checkpoint read into
+    the initial state of the config's trainer, as the JAX tools read one;
+    without, the seeded init (`CodecModel.seeded(random_books)`). On the
+    card it sets the f32 parity mode."""
+    import torch
+
+    from .. import set_f32_parity_mode
+    from ..models.registry import build_codec_model
+    from ..train.loop import build_trainer
+    if path is None:
+        model = build_codec_model(hps.get("model", "hilcodec"),
+                                  hps.model_kwargs.to_dict(), device=device)
+        params, vq_state = model.seeded(random_books)
+    else:
+        trainer = build_trainer(hps, device)
+        state, _ = load_checkpoint(
+            path, trainer.init_state(torch.Generator().manual_seed(0)))
+        model, params, vq_state = (trainer.model, state.params_g,
+                                   dict(state.vq_state))
+    if model.device.type == "cuda":
+        set_f32_parity_mode()
+    return model, params, vq_state
+
+
+def clean_checkpoints(base_dir: str, dry_run: bool = False
+                      ) -> List[Tuple[str, int]]:
+    """Delete all but the newest checkpoint of every directory under
+    base_dir (recursively). Returns [(path, bytes freed)]."""
+    removed = []
+    for root, _dirs, files in os.walk(base_dir):
+        ckpts = sorted((int(m.group(1)), f) for f in files
+                       if (m := _CKPT_RE.match(f)))
+        for _ep, f in ckpts[:-1]:
+            path = os.path.join(root, f)
+            size = os.path.getsize(path)
+            if not dry_run:
+                os.remove(path)
+            removed.append((path, size))
+    return removed

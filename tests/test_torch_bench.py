@@ -34,6 +34,8 @@ def _run(args):
     (["4", "--fused", "--device", "cpu"],
      bench.Args(streams=4, fused=True, device="cpu")),
     (["--dispatch", "--model", "hilcodec"], bench.Args(dispatch=True)),
+    (["8", "--frames", "4", "--megakernel"],
+     bench.Args(streams=8, megakernel=True, frames=4)),
 ])
 def test_parse_args(argv, expect):
     assert bench.parse_args(argv) == expect
@@ -45,6 +47,9 @@ def test_parse_args(argv, expect):
     (["many"], "streams must be an integer"),
     (["--fused", "--megakernel"], "no frame-kernel path"),
     (["--bogus"], "unknown option"),
+    (["--frames", "x"], "--frames requires an int"),
+    (["--frames", "0"], "--frames must be positive"),
+    (["--dispatch", "--frames", "2"], "takes no --frames"),
 ])
 def test_parse_args_rejects(argv, msg):
     with pytest.raises(SystemExit, match=msg):
@@ -52,7 +57,7 @@ def test_parse_args_rejects(argv, msg):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--dtype", "--depthwise",
-                                  "--unroll", "--chunks", "--frames"])
+                                  "--unroll", "--chunks"])
 def test_unported_options_point_at_roadmap(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         bench.parse_args(["8", flag, "2"])
@@ -86,6 +91,7 @@ def _tiny_model(device):
     (["--megakernel"], "torch_streaming_encdec_rtf_megakernel"),
     (["--fused"], "torch_streaming_encdec_rtf_fused"),
     (["--dispatch"], "torch_per_dispatch_frame_latency_ms"),
+    (["--frames", "2"], "torch_streaming_encdec_rtf_f2"),
 ])
 def test_tiny_cpu_run_prints_one_json_line(monkeypatch, capsys, extra,
                                            metric):
@@ -104,3 +110,24 @@ def test_tiny_cpu_run_prints_one_json_line(monkeypatch, capsys, extra,
     if "--dispatch" not in extra:
         # both are rounded from the same unrounded real-time factor
         assert abs(res["vs_baseline"] - res["value"] / 100.0) <= 1e-3
+
+
+@pytest.mark.parametrize("extra", [[], ["--megakernel"], ["--fused"]])
+def test_frames_per_step_matches_one_frame_a_step(extra):
+    """--frames 4 gives the tokens, wav and caches of --frames 1 on the
+    same audio, through each of the bench's drivers."""
+    cpu = torch.device("cpu")
+    model = _tiny_model(cpu)
+    params, vq_state = bench.bench_params(model)
+    wav = bench._noise((2, 1, 8 * model.hop_length), cpu)
+    outs = [bench.encode_decode(model, params, vq_state, wav,
+                                *model.init_cache(2),
+                                bench.parse_args(["2", "--frames", f,
+                                                  *extra]))
+            for f in ("1", "4")]
+    tok1, out1, ce1, cd1 = outs[0]
+    tok4, out4, ce4, cd4 = outs[1]
+    assert torch.equal(tok4, tok1)
+    torch.testing.assert_close(out4, out1, rtol=0, atol=1e-5)
+    for a, b in zip(ce4 + cd4, ce1 + cd1):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

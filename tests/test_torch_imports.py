@@ -7,6 +7,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,9 +57,9 @@ def test_no_jax_import_statements():
                                          "from hilcodec_tpu ")), (path, s)
 
 
-def test_entry_points_refuse_cpu_fallback():
-    """device=None means CUDA: without it the model, the engine and the CLI
-    raise instead of carrying on on the CPU."""
+def test_entry_points_refuse_cpu_fallback(tmp_path):
+    """device=None means CUDA: without it the model, the engine and the
+    CLIs raise instead of carrying on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from hilcodec_tpu_torch import resolve_device
@@ -73,6 +74,19 @@ def test_entry_points_refuse_cpu_fallback():
     out = _run(["-m", "hilcodec_tpu_torch.serve", "-c", CONFIG])
     assert out.returncode != 0
     assert "CUDA is not available" in out.stderr
+    from hilcodec_tpu_torch import eval as tools_eval
+    from hilcodec_tpu_torch import export, infer
+    from hilcodec_tpu_torch.utils.wavio import write_wav
+    wav = str(tmp_path / "a.wav")
+    write_wav(wav, np.zeros(960), 24000)
+    for main, argv in (
+            (export.main, ["-c", CONFIG, "-o", str(tmp_path / "x")]),
+            (infer.main, ["-c", CONFIG, "-i", wav, "-o",
+                          str(tmp_path / "y")]),
+            (tools_eval.main, ["-c", CONFIG, "-i", wav])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert os.listdir(tmp_path) == ["a.wav"]
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

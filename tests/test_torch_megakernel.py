@@ -30,6 +30,7 @@ from hilcodec_tpu_torch.models.hilcodec import HILCodec
 from hilcodec_tpu_torch.ops import decoder_kernel as DK
 from hilcodec_tpu_torch.ops import encoder_kernel as EK
 
+from test_rvq import assert_token_parity_exact_or_fp_tie
 from torch_port_common import both_params, codebooks, models, n, t
 
 FRAMES = 4
@@ -158,6 +159,68 @@ def test_frame_kernel_streams_equal_plain_streams(setup):
     for a, b in zip(ce_k + cd_k, ce_p + cd_p):
         assert a.shape == b.shape
         np.testing.assert_allclose(n(a), n(b), rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------ frames_per_step
+
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_frames_per_step_streams_match_jax(setup, f):
+    """encode_stream / decode_stream at f frames a step against JAX's at
+    the same f: tokens by the tie analyzer on the JAX latents, PCM and
+    caches within 1e-5."""
+    jm, tm, fj, ft = setup
+    books = codebooks()
+    wav = (np.random.default_rng(5).standard_normal((2, 1, 8 * 8))
+           * 0.3).astype(np.float32)
+    vj, vt = {"embed": jnp.asarray(books)}, {"embed": t(books)}
+    cej, cdj = jm.init_cache(2)
+    cet, cdt = tm.init_cache(2)
+    tokj, cej = jm.encode_stream(fj, vj, jnp.asarray(wav), cej,
+                                 frames_per_step=f, megakernel=False)
+    tokt, cet = tm.encode_stream(ft, vt, t(wav), cet, frames_per_step=f)
+    assert tuple(tokt.shape) == (3, 2, 8)
+    z = n(jm.codec.encoder.apply(fj["encoder"], jnp.asarray(wav)))
+    assert_token_parity_exact_or_fp_tie(n(tokt), z.transpose(0, 2, 1),
+                                        books, 3)
+    assert (n(tokt) == n(tokj)).all(), "a token tie moved the decoder input"
+    outj, cdj = jm.decode_stream(fj, vj, tokj, cdj, frames_per_step=f,
+                                 megakernel=False)
+    outt, cdt = tm.decode_stream(ft, vt, tokt, cdt, frames_per_step=f)
+    assert outt.shape == wav.shape
+    np.testing.assert_allclose(n(outt), n(outj), rtol=0, atol=1e-5)
+    for a, b in zip(cet + cdt, list(cej) + list(cdj)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("megakernel", [False, True])
+def test_four_frames_a_step_equal_one(setup, megakernel):
+    """In the port, f = 4 gives the tokens, wav and caches of f = 1, on the
+    plain frame step and on the frame kernels' plain version; a length
+    that f does not divide raises."""
+    _, tm, _, ft = setup
+    vq = {"embed": t(codebooks())}
+    wav = t((np.random.default_rng(6).standard_normal((3, 1, 8 * 8))
+             * 0.3).astype(np.float32))
+    res = []
+    for f in (1, 4):
+        ce, cd = tm.init_cache(3)
+        tok, ce = tm.encode_stream(ft, vq, wav, ce, frames_per_step=f,
+                                   megakernel=megakernel)
+        out, cd = tm.decode_stream(ft, vq, tok, cd, frames_per_step=f,
+                                   megakernel=megakernel)
+        res.append((tok, out, ce + cd))
+    assert torch.equal(res[1][0], res[0][0])
+    np.testing.assert_allclose(n(res[1][1]), n(res[0][1]), rtol=0,
+                               atol=1e-5)
+    for a, b in zip(res[1][2], res[0][2]):
+        np.testing.assert_allclose(n(a), n(b), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="frames_per_step"):
+        tm.encode_stream(ft, vq, wav[:, :, :24], tm.init_cache(3)[0],
+                         frames_per_step=2)
+    with pytest.raises(ValueError, match="frames_per_step"):
+        tm.decode_stream(ft, vq, res[0][0][:, :, :3], tm.init_cache(3)[1],
+                         frames_per_step=2)
 
 
 # ---------------------------------------------------------------- phases
@@ -314,6 +377,57 @@ def _check_phase_table(setup, part, batch, kslice=None):
                                    rtol=1e-5, atol=1e-6)
         caches = (mk.unpack(c_flat, batch) if part == "decoder"
                   else [caches[0]] + mk.unpack(c_flat, batch))
+
+
+@pytest.mark.parametrize("part", ["decoder", "encoder"])
+def test_phase_table_at_two_frames_matches_jax_interpret(setup, part):
+    """The phase table built for t = 2 frames a launch (each step's input
+    twice as long, the encoder's STFT inputs from its real wav ring),
+    emulated phase by phase, against JAX's Pallas megakernel in interpret
+    mode on the same two-frame steps."""
+    jm, tm, fj, ft = setup
+    frames, batch = 2, 3
+    rng = np.random.default_rng(7)
+    if part == "decoder":
+        jmk = JaxDecMK(jm.codec.decoder, block_streams=batch,
+                       interpret=True)
+        mk = DK.DecoderMegakernel(tm.codec.decoder)
+        cj, ct = jmk.init_cache(batch), mk.init_cache(batch)
+    else:
+        jmk = JaxEncMK(jm.codec.encoder, block_streams=batch,
+                       interpret=True)
+        mk = EK.EncoderMegakernel(tm.codec.encoder)
+        cj = jmk.cache_to_time_major(jm.codec.encoder.init_cache(batch))
+        ct = mk.cache_to_time_major(tm.codec.encoder.init_cache(batch))
+    jstep = jax.jit(jmk.step)
+    w = mk.weights(ft[part])
+    for _ in range(3):
+        if part == "decoder":
+            q = (rng.standard_normal((batch, 16, frames)) * 0.5
+                 ).astype(np.float32)
+            yj, cj = jstep(fj["decoder"], cj, jnp.asarray(q))
+            x, aux, cin = t(q).transpose(1, 2).contiguous(), [], ct
+        else:
+            q = (rng.standard_normal((batch, 1, 8 * frames)) * 0.3
+                 ).astype(np.float32)
+            yj, cj = jstep(fj["encoder"], cj, jnp.asarray(q))
+            ring, x, aux = mk.frame_inputs(ct[0], t(q))
+            cin = ct[1:]
+        table, _ = DK.build_phases(mk.ops, w.offsets, mk.cache_shapes, batch,
+                                   x.shape[1], 1 if x.ndim == 2 else 16,
+                                   GRID)
+        y, c_flat = _emulate(table, batch, x, aux, mk.pack(cin, batch),
+                             w.flat)
+        ct = mk.unpack(c_flat, batch)
+        if part == "encoder":
+            ct = [ring] + ct
+            y = y.view(batch, frames, 16).transpose(1, 2)
+            tol = dict(rtol=1e-4, atol=1e-5)
+        else:
+            y = y.view(batch, 1, 8 * frames)
+            tol = dict(rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(n(y), n(yj), **tol)
+        _close_tm(ct, cj, **tol)
 
 
 def test_time_major_caches_are_one_packed_buffer(setup):

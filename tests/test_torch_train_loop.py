@@ -23,6 +23,7 @@ from hilcodec_tpu.utils.hparams import HParams as JaxHParams
 from hilcodec_tpu_torch.train.loop import TrainLoop, build_trainer
 from hilcodec_tpu_torch.utils import checkpoint as ckpt
 from hilcodec_tpu_torch.utils import params as P
+from hilcodec_tpu_torch.utils import summarize as S
 from hilcodec_tpu_torch.utils.hparams import HParams, load_config
 from hilcodec_tpu_torch.utils.wavio import write_wav
 
@@ -191,3 +192,42 @@ def test_checkpoints_cross_both_ways(setup):
         np.testing.assert_array_equal(resumed[k], np.asarray(v), err_msg=k)
     back.run(max_epochs=2)
     assert ckpt.latest_checkpoint(str(tmp / "jax"))[0] == 2
+
+
+@pytest.mark.parametrize("absent,infer,line", [
+    ([], True, None),
+    (["matplotlib"], True, "TrainLoop: not writing the infer epoch's log-mel "
+                           "images (matplotlib is not installed)"),
+    (["tensorboard", "matplotlib"], True,
+     "TrainLoop: not writing the train and valid scalars, metric/*, the "
+     "parameter and gradient histograms (plot_param_and_grad), the infer "
+     "epoch's audio and log-mel images (tensorboard is not installed)"),
+    ([], False, "TrainLoop: not writing the infer epoch (no infer data: "
+                "KeyError 'infer')"),
+])
+def test_loop_names_what_it_cannot_write(setup, monkeypatch, capsys, absent,
+                                         infer, line):
+    """The flagship's summary keys are never dropped silently: with a
+    package or an epoch's filelist missing the loop says in one line what
+    it will not write and trains on; with the flagship's metrics all off,
+    the pesq epoch is a no-op."""
+    tmp, cfg, _ = setup
+    cfg["train"]["plot_param_and_grad"] = True
+    if infer:
+        cfg["data"]["filelists"]["infer"] = str(tmp / "valid.txt")
+    cfg["pesq"] = {"interval": 1, "metrics_to_calculate": {
+        "pesq": False, "stoi": False, "visqol": False,
+        "visqol_audio": False}}
+    loop = TrainLoop(HParams(**cfg), run_dir=str(tmp / "run"), device="cpu")
+    monkeypatch.setattr(S, "missing", lambda: list(absent))
+    loop._open_writers()
+    try:
+        out = capsys.readouterr().out.splitlines()
+        assert out == ([line] if line else [])
+        assert (loop.writer_train is None) == ("tensorboard" in absent)
+        assert loop.plot_param_and_grad == ("tensorboard" not in absent)
+        assert loop._images == (not absent)
+        assert (loop.infer_loader is None) == (not infer)
+        assert loop.pesq_epoch() == {} and loop.metrics._executor is None
+    finally:
+        loop._close()

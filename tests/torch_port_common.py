@@ -79,3 +79,23 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def write_jax_checkpoint(hps, path, seed=0):
+    """A JAX train checkpoint of config `hps` (a JAX HParams) at `path`:
+    the JAX trainer's initial state, its zero-init scales set to seeded
+    nonzero values and its codebooks to N(0, 1) draws, so that every
+    branch and every code carries signal. Returns the flat arrays."""
+    from hilcodec_tpu.models import discriminators as jax_discs
+    from hilcodec_tpu.train.loop import build_trainer
+    try:
+        state = build_trainer(hps).init_state(jax.random.PRNGKey(seed))
+    finally:
+        jax_discs.set_fbd_lowering("conv2d")
+    flat = seeded_flat(state, seed)
+    rng = np.random.default_rng(seed + 1)
+    key = ".vq_state/embed"
+    flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32)
+    flat["__extra__/epoch"] = np.asarray(1)
+    np.savez(path, **flat)
+    return flat
