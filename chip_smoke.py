@@ -16,7 +16,7 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      to 1000; ragged K and K below the cluster size at C = 64; duplicate
      codewords in two CTAs' slices, first index kept; two more launches
      bitwise equal; timed at n = 1, 2, 4, 8 for the per-stage cost and at
-     n_q = 32, K2's shape),
+     n_q = 32, K2's shape, at M = 16, 128 and 1800),
      and the decoder and encoder frame
      kernels on the flagship at 1, 3, 7, 16, 64 and 128 streams over 3
      frames, output and every cache, each launched twice more on the same
@@ -71,7 +71,21 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      frames, each timed at t = 4; a train CLI run with the histograms, the
      infer epoch and SI-SDR at interval 1 (its event files, or its one-line
      notice of what it cannot write); `clean_checkpoint --dry-run` lists
-     only 00001.ckpt.npz.
+     only 00001.ckpt.npz;
+  9. EnCodec (configs/encodec_24khz.yaml at full width, seeded weights,
+     N(0, 1) codebooks, folded; the RVQ kernel at n_q = 32, K2's shape):
+     the LSTM through cuDNN against a float64 CPU run in the f32 parity
+     mode (and, reported, with TF32 allowed); a 16-slot roundtrip engine
+     behind TCP with 8 clients x 75 frames, each against its solo stream
+     with the plain quantizer, one RVQ launch a tick; `python -m
+     hilcodec_tpu_torch.serve -c configs/encodec_24khz.yaml` in a
+     subprocess against an engine on the same seeded weights (one client,
+     the same tokens); ticks at 16 and 128
+     slots with the profiler; the bench with --model encodec (8
+     quantizers, K1's shape) at 16 and 128 streams; the trainer at batch
+     24 x 24000 (3 warm-up and 10 timed steps, as 7(a)); the RVQ kernel's
+     training tokens at M = 1800, n = 32; one step on the card against
+     the CPU step at batch 2 (as 7(b)).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -92,6 +106,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "hilcodec_speech.yaml")
+ENCODEC_CONFIG = os.path.join(ROOT, "configs", "encodec_24khz.yaml")
+ENCODEC_BENCH_STREAMS = (16, 128)
+# the EnCodec LSTM (width 512, 2 layers) on cuDNN against a float64 CPU
+# run of the same cell over 75 steps: f32 reads ~3e-7 on an H100, TF32
+# (10 mantissa bits) ~7e-5, which phase_lstm requires to fail this bar
+LSTM_TOL = 2e-5
 SEED = 0
 N_CLIENTS = 8
 CLIENT_FRAMES = 75            # 1 s at 24 kHz / hop 320
@@ -281,12 +301,18 @@ def phase_kernels(dev):
     dup[0, 900] = dup[0, 100]
     dup = dup.to(dev)
     cases = [(books8, M, n) for M in (1, 7, 16, 128, 1000) for n in (8, 3)]
-    cases += [(books32, M, 32) for M in (7, 128)]
+    # K2's shape on the EnCodec paths: serving at 16 and 128 slots,
+    # training at 24 x 75 = 1800 rows
+    cases += [(books32, M, 32) for M in (7, SERVE_SLOTS, 128, 1800)]
+    # ... and the training path's dropout depths below 32 (rings 1-4)
+    cases += [(books32, M, n) for M in (SERVE_SLOTS, 1800)
+              for n in (1, 2, 3, 13)]
     cases += [(b, M, 3) for b in (books_k1000, books_k16)
               for M in (7, 128, 1000)]
     cases += [(dup, M, 2) for M in (16, 64)]
 
-    for M, n in ((SERVE_SLOTS, 8), (128, 8), (1000, 8), (128, 32)):
+    for M, n in ((SERVE_SLOTS, 8), (128, 8), (1000, 8), (SERVE_SLOTS, 32),
+                 (128, 32), (1800, 32)):
         log(f"[kernel] rvq_cascade plan M={M} n={n} K=1024 C=128: "
             + plan_line(M, 1024, 128, n))
 
@@ -346,8 +372,9 @@ def phase_kernels(dev):
             f"{(per_n[1] - slope) * 1e3:.2f} us fixed")
 
     timings = {}
-    for books, n in ((books8, 8), (books32, 32)):
-        for M in (SERVE_SLOTS, 128):
+    for books, n, rows in ((books8, 8, (SERVE_SLOTS, 128)),
+                           (books32, 32, (SERVE_SLOTS, 128, 1800))):
+        for M in rows:
             x = torch.randn((1, M, 128), generator=gen).to(dev)
             ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
             eager_ms = cuda_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
@@ -694,7 +721,7 @@ async def run_client(port: int, pcm16: np.ndarray, hop: int, n_q: int):
         writer.close()
 
 
-def phase_serve(model, params, vq_state, sr):
+def phase_serve(model, params, vq_state, sr, tag="serve"):
     import torch
     from hilcodec_tpu_torch.ops import rvq, rvq_kernel
     from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
@@ -702,7 +729,7 @@ def phase_serve(model, params, vq_state, sr):
     hop, n_q = model.hop_length, model.vq.num_quantizers
     engine = SlotEngine(model, params, vq_state, slots=SERVE_SLOTS,
                         mode="roundtrip", fold=False, device=model.device)
-    log(f"[serve] {SERVE_SLOTS}-slot roundtrip engine warmup "
+    log(f"[{tag}] {SERVE_SLOTS}-slot roundtrip engine warmup "
         f"{engine.warmup():.2f} s")
     audio = [client_audio(i, hop) for i in range(N_CLIENTS)]
 
@@ -722,9 +749,10 @@ def phase_serve(model, params, vq_state, sr):
     wall = time.perf_counter() - t0
     launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
     ticks = engine.stats["ticks"] - ticks0
-    log(f"[serve] {N_CLIENTS} TCP clients x {CLIENT_FRAMES} frames answered "
-        f"in {wall:.2f} s over {ticks} ticks; rvq_cascade launches {launches}")
-    if launches < ticks or ticks == 0:
+    log(f"[{tag}] {N_CLIENTS} TCP clients x {CLIENT_FRAMES} frames "
+        f"answered in {wall:.2f} s over {ticks} ticks; rvq_cascade launches "
+        f"{launches} (n = {n_q}, M = {SERVE_SLOTS})")
+    if launches != ticks or ticks == 0:
         raise AssertionError(f"rvq_cascade launched {launches} times in "
                              f"{ticks} ticks")
 
@@ -772,7 +800,7 @@ def phase_serve(model, params, vq_state, sr):
         worst_lsb = max(worst_lsb, lsb)
         if lsb > PCM_TOL_LSB or not np.isfinite(ref_wav.cpu().numpy()).all():
             raise AssertionError(f"client {i}: PCM off by {lsb} steps")
-    log(f"[serve] all {N_CLIENTS} clients match the solo plain-quantizer "
+    log(f"[{tag}] all {N_CLIENTS} clients match the solo plain-quantizer "
         f"stream: tokens (fp ties {n_ties}), PCM max |diff| {worst_lsb} "
         f"int16 steps (tolerance {PCM_TOL_LSB})")
     return launches
@@ -780,7 +808,7 @@ def phase_serve(model, params, vq_state, sr):
 
 # --------------------------------------------------------------- phase 4
 
-def phase_timings(model, params, vq_state, card):
+def phase_timings(model, params, vq_state, card, tag="timing"):
     from hilcodec_tpu_torch.serve import SlotEngine
 
     hop = model.hop_length
@@ -806,14 +834,14 @@ def phase_timings(model, params, vq_state, card):
         p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
         rtf = slots * frame_s / float(np.mean(times))
         out[slots] = (p50, p99, rtf)
-        log(f"[timing] {slots} slots: engine tick p50 {p50 * 1e3:.2f} ms, "
+        log(f"[{tag}] {slots} slots: engine tick p50 {p50 * 1e3:.2f} ms, "
             f"p99 {p99 * 1e3:.2f} ms, aggregate real-time factor "
             f"{rtf:.1f}x over {TIMED_TICKS} ticks ({card})")
-        profile_ticks(engine, slots, p50, rng)
+        profile_ticks(engine, slots, p50, rng, tag=tag)
     return out
 
 
-def profile_ticks(engine, slots, p50_s, rng, ticks=10):
+def profile_ticks(engine, slots, p50_s, rng, ticks=10, tag="timing"):
     """Device kernel time and kernel count per tick under torch.profiler,
     and the device's busy share of the unprofiled p50 tick."""
     import torch
@@ -833,11 +861,11 @@ def profile_ticks(engine, slots, p50_s, rng, ticks=10):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.device_time_total for e in dev) / ticks / 1e3
     n_kernels = sum(e.count for e in dev) / ticks
-    log(f"[profile] {slots} slots: {dev_ms:.2f} ms of device kernels and "
-        f"{n_kernels:.0f} kernels per tick; device busy "
+    log(f"[{tag}-profile] {slots} slots: {dev_ms:.2f} ms of device kernels "
+        f"and {n_kernels:.0f} kernels per tick; device busy "
         f"{dev_ms / (p50_s * 1e3) * 100:.0f}% of the p50 tick")
     for e in sorted(dev, key=lambda e: -e.device_time_total)[:6]:
-        log(f"[profile]   {e.device_time_total / ticks / 1e3:.3f} ms "
+        log(f"[{tag}-profile]   {e.device_time_total / ticks / 1e3:.3f} ms "
             f"x{e.count / ticks:.0f}/tick  {e.key[:80]}")
 
 
@@ -966,15 +994,16 @@ def speech_batch(rng, batch, length, sr=24000):
     return wav[:, None, :].astype(np.float32)
 
 
-def train_setup(device, batch, seed):
-    """The flagship trainer on `device` and a seeded state whose codebooks
-    are k-means-initialized on a seeded batch (not one later stepped on)."""
+def train_setup(device, batch, seed, config=CONFIG):
+    """The trainer of `config` (the flagship's by default) on `device` and
+    a seeded state whose codebooks are k-means-initialized on a seeded
+    batch (not one later stepped on)."""
     import torch
     from hilcodec_tpu_torch.train.loop import build_trainer
     from hilcodec_tpu_torch.train.step import to_device
     from hilcodec_tpu_torch.utils.hparams import load_config
 
-    hps = load_config(CONFIG)
+    hps = load_config(config)
     trainer = build_trainer(hps, device)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
     wav = speech_batch(np.random.default_rng(seed), batch, TRAIN_SEGMENT)
@@ -1004,10 +1033,11 @@ def train_bound(trainer, state, wav_t, draws):
     return flops, flops / PEAK_F32_FLOPS * 1e3, by_op
 
 
-def phase_train_full(card):
-    """(a) The flagship trainer at batch 24 x 24000 on the card: k-means
-    init, warm-up steps, timed steps (CUDA events per step), throughput,
-    peak memory, a torch.profiler window and the FLOP bound."""
+def phase_train_full(card, config=CONFIG, tag="train"):
+    """(a) The trainer of `config` (the flagship's by default) at batch 24
+    x 24000 on the card: k-means init, warm-up steps, timed steps (CUDA
+    events per step), throughput, peak memory, a torch.profiler window
+    and the FLOP bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1018,9 +1048,9 @@ def phase_train_full(card):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 20)
+    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 20, config)
     torch.cuda.synchronize()
-    log(f"[train] flagship trainer (configs/hilcodec_speech.yaml) on the "
+    log(f"[{tag}] trainer of {os.path.relpath(config, ROOT)} on the "
         f"card, batch {TRAIN_BATCH} x {TRAIN_SEGMENT} samples; built and "
         f"k-means-initialized in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED + 21)
@@ -1042,7 +1072,7 @@ def phase_train_full(card):
     for b in batches[:TRAIN_WARMUP]:
         step(b)
     torch.cuda.synchronize()
-    log(f"[train] {TRAIN_WARMUP} warm-up steps in "
+    log(f"[{tag}] {TRAIN_WARMUP} warm-up steps in "
         f"{time.perf_counter() - t0:.2f} s")
 
     events = [torch.cuda.Event(enable_timing=True)
@@ -1065,15 +1095,14 @@ def phase_train_full(card):
     audio_s = TRAIN_TIMED * TRAIN_BATCH * TRAIN_SEGMENT / 24000.0
     peak = torch.cuda.max_memory_allocated()
     host = [metrics_to_host(m) for m in metrics]
-    log(f"[train] {TRAIN_TIMED} timed steps: step ms p50 {p50:.1f}, p90 "
+    log(f"[{tag}] {TRAIN_TIMED} timed steps: step ms p50 {p50:.1f}, p90 "
         f"{p90:.1f} (CUDA events; all "
         f"{', '.join(f'{x:.1f}' for x in step_ms)}); wall {wall:.3f} s, "
         f"{audio_s / wall:.1f} audio s trained per wall s; peak memory "
         f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
         f"dropout depths {depths}; rvq_cascade launches {launches} ({card})")
-    for k in ("loss/freq", "loss/mfbd_g", "loss/mfbd_fm", "loss/mstftd_g",
-              "loss/mstftd_fm", "loss/vq", "loss/d"):
-        log(f"[train]   {k}: " + ", ".join(f"{h[k]:.4g}" for h in host))
+    for k in sorted(k for k in host[0] if k.startswith("loss/")):
+        log(f"[{tag}]   {k}: " + ", ".join(f"{h[k]:.4g}" for h in host))
     bad = [(i, k) for i, h in enumerate(host) for k, v in h.items()
            if k != "num_replaces" and not np.all(np.isfinite(v))]
     if bad or any(h["finite"] != 1.0 for h in host):
@@ -1084,7 +1113,7 @@ def phase_train_full(card):
     last_g, last_d = flatten(state.params_g), flatten(state.params_d)
     still_g = [k for k, v in first_g.items() if torch.equal(v, last_g[k])]
     still_d = [k for k, v in first_d.items() if torch.equal(v, last_d[k])]
-    log(f"[train] params moved: {len(first_g) - len(still_g)} / "
+    log(f"[{tag}] params moved: {len(first_g) - len(still_g)} / "
         f"{len(first_g)} generator leaves, {len(first_d) - len(still_d)} / "
         f"{len(first_d)} discriminator leaves (unmoved: "
         f"{(still_g + still_d)[:12]})")
@@ -1100,17 +1129,17 @@ def phase_train_full(card):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.device_time_total for e in dev) / TRAIN_PROFILED / 1e3
     n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
-    log(f"[train] torch.profiler over {TRAIN_PROFILED} steps: {dev_ms:.1f} "
+    log(f"[{tag}] torch.profiler over {TRAIN_PROFILED} steps: {dev_ms:.1f} "
         f"ms of device kernels and {n_kernels:.0f} kernels a step; device "
         f"busy {dev_ms / p50 * 100:.0f}% of the p50 step")
     for e in sorted(dev, key=lambda e: -e.device_time_total)[:10]:
-        log(f"[train]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f} ms "
+        log(f"[{tag}]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f} ms "
             f"x{e.count / TRAIN_PROFILED:.0f}/step  {e.key[:90]}")
 
     wav_t = batches[0]
     draws = trainer.sample_draws(step_generator(SEED, 0), wav_t.shape)
     flops, bound_ms, by_op = train_bound(trainer, state, wav_t, draws)
-    log(f"[train] step FLOPs (conv + matmul shapes, forward and backward, "
+    log(f"[{tag}] step FLOPs (conv + matmul shapes, forward and backward, "
         f"dropout depth {draws.n}): {flops / 1e12:.2f} TFLOP ("
         + ", ".join(f"{k} {v / 1e12:.2f}" for k, v in sorted(
             by_op.items(), key=lambda kv: -kv[1]))
@@ -1118,7 +1147,9 @@ def phase_train_full(card):
         f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, "
         f"{bound_ms / p50 * 100:.1f}% of the p50 step")
     return trainer, state, dict(p50=p50, p90=p90, launches=launches,
-                                bound_ms=bound_ms)
+                                bound_ms=bound_ms, peak=peak,
+                                audio_s=audio_s / wall,
+                                busy=dev_ms / p50)
 
 
 def _rel(a, b):
@@ -1130,7 +1161,7 @@ def _rel_l2(a, b, floor=1e-30):
     return float((a - b).norm() / max(float(b.norm()), floor))
 
 
-def phase_train_parity():
+def phase_train_parity(config=CONFIG, tag="train-parity"):
     """(b) One step of the port on the card against the same step of the
     port on the CPU: full width, batch 2, the same state (codebooks
     k-means-initialized on the CPU on another batch), batch and draws."""
@@ -1140,7 +1171,8 @@ def phase_train_parity():
     from hilcodec_tpu_torch.utils.params import flatten, tree_map, unflatten
 
     t0 = time.perf_counter()
-    hps, cpu_tr, cpu_state = train_setup("cpu", PARITY_BATCH, SEED + 30)
+    hps, cpu_tr, cpu_state = train_setup("cpu", PARITY_BATCH, SEED + 30,
+                                         config)
     # zero-init scales set to seeded nonzero values, as the CPU tests do,
     # so every residual and spec branch carries gradient
     gen = torch.Generator().manual_seed(SEED + 32)
@@ -1163,7 +1195,7 @@ def phase_train_parity():
     new_g, _ = card_tr.apply_grads(card_state, aux_g)
     again = card_tr.compute_grads(card_state, wav_g, card_draws)
     torch.cuda.synchronize()
-    log(f"[train-parity] one step at batch {PARITY_BATCH} x "
+    log(f"[{tag}] one step at batch {PARITY_BATCH} x "
         f"{TRAIN_SEGMENT} samples, dropout depth "
         f"{draws.n}, on the card and on the CPU (in "
         f"{time.perf_counter() - t0:.1f} s with set-up)")
@@ -1180,12 +1212,12 @@ def phase_train_parity():
     for k in ("embed", "ema_embed", "ema_num"):
         worst[f"vq/{k}"] = _rel_l2(aux_g["new_vq_state"][k],
                                    aux_c["new_vq_state"][k])
-    log("[train-parity] losses, balancer EMA (max relative error) and VQ "
+    log(f"[{tag}] losses, balancer EMA (max relative error) and VQ "
         "state (relative L2); bars 1e-4: " + ", ".join(
             f"{k} {v:.2g}" for k, v in worst.items()))
     replaces = (aux_g["num_replaces"].cpu().tolist(),
                 aux_c["num_replaces"].tolist())
-    log(f"[train-parity] codes replaced by stage, card / CPU: {replaces}")
+    log(f"[{tag}] codes replaced by stage, card / CPU: {replaces}")
     for k, rel in worst.items():
         bar = VQ_RTOL if k.startswith("vq/") else LOSS_RTOL
         if not rel <= bar:
@@ -1247,7 +1279,7 @@ def phase_train_parity():
             derrs.append((_rel_l2((p_g[k].cpu() - p0[k])[keep],
                                   (p_c[k] - p0[k])[keep]), k))
         derrs.sort(reverse=True)
-        log(f"[train-parity] {side.upper()}: {len(fc)} leaves, worst grad "
+        log(f"[{tag}] {side.upper()}: {len(fc)} leaves, worst grad "
             f"rel L2 {errs[0][0]:.2g} ({errs[0][1]}; floor "
             f"{GRAD_FLOOR_REL} of the global norm), worst AdamP update from "
             f"the same gradients rel L2 {uerrs[0][0]:.2g} ({uerrs[0][1]}); "
@@ -1258,19 +1290,20 @@ def phase_train_parity():
         if errs[0][0] > GRAD_RTOL or uerrs[0][0] > GRAD_RTOL:
             raise AssertionError(f"card vs CPU {side}: grads {errs[:3]}, "
                                  f"AdamP updates {uerrs[:3]}")
-    log(f"[train-parity] AdamP gate flips within {GATE_MARGIN} of the "
+    log(f"[{tag}] AdamP gate flips within {GATE_MARGIN} of the "
         f"threshold (reported, not failures): {flips or 'none'}")
     rerun = max(_rel_l2(a, b) for a, b in zip(
         flatten(again["g_grads"]).values(),
         flatten(aux_g["g_grads"]).values()))
-    log(f"[train-parity] the same step twice on the card: G grads differ "
+    log(f"[{tag}] the same step twice on the card: G grads differ "
         f"by rel L2 up to {rerun:.2g} (cuDNN's backward-weight kernels "
         f"need not be bitwise repeatable; reported, not asserted)")
 
 
-def phase_train_tokens(trainer, state):
+def phase_train_tokens(trainer, state, depths=(2, 4, 8),
+                       tag="train-tokens"):
     """(c) The training forward's stage indices (the RVQ kernel) against
-    the plain cascade at M = 1800 rows, n = 2, 4, 8."""
+    the plain cascade at M = 1800 rows, at each dropout depth given."""
     import torch
     from hilcodec_tpu_torch.ops import rvq, rvq_kernel
 
@@ -1282,7 +1315,7 @@ def phase_train_tokens(trainer, state):
             state.params_g["encoder"], torch.from_numpy(wav).cuda())
         x = z.transpose(1, 2).contiguous()
         M = x.shape[0] * x.shape[1]
-        for n in (2, 4, 8):
+        for n in depths:
             got = rvq_kernel.quantize_cuda(x, books, n)
             ref = rvq.quantize(x, books, n)
             rep = rvq.token_parity_report(got, ref, x, books)
@@ -1291,7 +1324,7 @@ def phase_train_tokens(trainer, state):
             ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
             bound_ms, bound_by = rvq_bound_ms(M, n, books.shape[1],
                                               books.shape[2])
-            log(f"[train-tokens] M={M} n={n} (trained codebooks): "
+            log(f"[{tag}] M={M} n={n} (trained codebooks): "
                 f"mismatches {rep['mismatches']} (ties {rep['ties']}, not "
                 f"ties {rep['not_ties']}); plan G={plan.cluster} "
                 f"TM={plan.rows}, {plan.tiles} clusters; kernel "
@@ -1406,16 +1439,17 @@ def in_process(main, argv):
     return buf.getvalue(), time.perf_counter() - t0
 
 
-def serve_subprocess(cfg, ckpt):
-    """`python -m hilcodec_tpu_torch.serve --ckpt` on a free port: (process,
-    port, seconds to its first "serving" line)."""
+def serve_subprocess(cfg, ckpt=None):
+    """`python -m hilcodec_tpu_torch.serve [--ckpt]` on a free port, 4
+    slots: (process, port, seconds to its first "serving" line)."""
     import queue
     import threading
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "hilcodec_tpu_torch.serve", "-c", cfg,
-         "--ckpt", ckpt, "--slots", "4", "--port", "0"], cwd=ROOT, env=env,
+         "--slots", "4", "--port", "0"] + (["--ckpt", ckpt] if ckpt else []),
+        cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = queue.Queue()
     threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
@@ -1435,7 +1469,7 @@ def serve_subprocess(cfg, ckpt):
             return proc, int(m.group(1)), time.perf_counter() - t0
     proc.kill()
     proc.wait()
-    raise AssertionError("serve --ckpt did not start: "
+    raise AssertionError("serve did not start: "
                          + " | ".join(seen[-10:]))
 
 
@@ -1739,6 +1773,160 @@ def phase_train_summaries(tmp, card):
         + (f"; {notice[0]}" if notice else ""))
 
 
+# --------------------------------------------------------------- phase 9
+
+def build_encodec(device):
+    """configs/encodec_24khz.yaml at full width: seeded params, N(0, 1)
+    codebooks (32 x 1024 x 128), folded."""
+    import torch
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    hps = load_config(ENCODEC_CONFIG)
+    model = build_codec_model(hps.model, hps.model_kwargs.to_dict(),
+                              device=device)
+    params, vq_state = model.seeded(random_books=True)
+    return (model, model.fold_params(params), vq_state,
+            hps.data.sampling_rate)
+
+
+def phase_lstm(dev):
+    """The EnCodec LSTM (width 512, 2 layers) through torch.lstm on the
+    card at 16 streams x 75 frames against a float64 run of the port's
+    CPU cell on the same weights: f32 under set_f32_parity_mode, and the
+    same call with TF32 allowed, to show that the mode reaches cuDNN's
+    RNN."""
+    import torch
+    from hilcodec_tpu_torch import set_f32_parity_mode
+    from hilcodec_tpu_torch.models.encodec import SLSTM
+    from hilcodec_tpu_torch.utils.params import tree_map
+
+    lstm = SLSTM(512, 2)
+    gen = torch.Generator().manual_seed(SEED + 60)
+    params = lstm.init(gen)
+    x = torch.randn((16, 512, CLIENT_FRAMES), generator=gen)
+    with torch.no_grad():
+        ref = lstm.apply(tree_map(lambda v: v.double(), params), x.double())
+        p_dev = tree_map(lambda v: v.to(dev), params)
+        errs = {}
+        for mode in ("tf32", "f32"):
+            if mode == "f32":
+                set_f32_parity_mode()
+            else:
+                torch.backends.cudnn.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = True
+            y = lstm.apply(p_dev, x.to(dev))
+            errs[mode] = float((y.double().cpu() - ref).abs().max())
+    log(f"[encodec-lstm] torch.lstm (cuDNN), 2 layers x 512, 16 x "
+        f"{CLIENT_FRAMES} steps, against a float64 CPU run: max |diff| "
+        f"{errs['f32']:.3g} in the f32 parity mode (tolerance {LSTM_TOL}), "
+        f"{errs['tf32']:.3g} with TF32 allowed")
+    if not errs["f32"] <= LSTM_TOL:
+        raise AssertionError(f"cuDNN's LSTM is off by {errs['f32']} in the "
+                             f"f32 parity mode")
+    if not errs["tf32"] > LSTM_TOL:
+        raise AssertionError(f"with TF32 allowed cuDNN's LSTM is off by only "
+                             f"{errs['tf32']}: this check cannot tell the "
+                             f"modes apart")
+
+
+def phase_encodec_serve_cli(model, params, vq_state, sr, card):
+    """`python -m hilcodec_tpu_torch.serve -c configs/encodec_24khz.yaml`
+    (4 slots, the seeded weights build_encodec makes too) in a subprocess,
+    one 75-frame client, against a 4-slot engine in this process on the
+    same weights: the same tokens, PCM within PCM_TOL_LSB."""
+    from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
+
+    hop, n_q = model.hop_length, model.vq.num_quantizers
+    audio = client_audio(0, hop)
+    proc, port, dt = serve_subprocess(ENCODEC_CONFIG)
+    try:
+        tok_cli, pcm_cli = asyncio.run(run_client(port, audio, hop, n_q))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    engine = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
+                        fold=False, device=model.device)
+    engine.warmup()
+
+    async def served():
+        srv = CodecServer(engine, sr=sr, port=0)
+        await srv.start()
+        try:
+            return await run_client(srv.port, audio, hop, n_q)
+        finally:
+            await srv.stop()
+
+    tok, pcm = asyncio.run(served())
+    lsb = int(np.abs(pcm.astype(np.int64) - pcm_cli).max())
+    log(f"[encodec-serve-cli] serve -c configs/encodec_24khz.yaml serving "
+        f"{dt:.1f} s after start ({card}); one {CLIENT_FRAMES}-frame client "
+        f"against an engine in this process: tokens "
+        f"{'identical' if np.array_equal(tok, tok_cli) else 'DIFFER'}, PCM "
+        f"max |diff| {lsb} int16 steps")
+    if tok_cli.shape != (n_q, CLIENT_FRAMES) or not np.array_equal(
+            tok, tok_cli) or lsb > PCM_TOL_LSB:
+        raise AssertionError("the EnCodec serve CLI differs from the "
+                             "engine on the same weights")
+
+
+def phase_encodec(card):
+    """configs/encodec_24khz.yaml on the card: the LSTM's f32 check; a
+    16-slot engine behind TCP (8 clients x 75 frames, each against its
+    solo stream with the plain quantizer); the serve CLI; ticks at 16 and
+    128 slots with
+    the profiler; the bench with --model encodec at 16 and 128 streams;
+    the trainer at batch 24 x 24000 (3 warm-up, 10 timed steps); the RVQ
+    kernel's training tokens at M = 1800, n = 32; one step on the card
+    against the CPU step at batch 2. Returns the RVQ kernel's launches on
+    the serving, bench and training paths and the training numbers."""
+    import torch
+    from hilcodec_tpu_torch import bench
+    from hilcodec_tpu_torch.ops import rvq_kernel
+
+    phase_lstm(torch.device("cuda", 0))
+    model, params, vq_state, sr = build_encodec("cuda")
+    log(f"[encodec] configs/encodec_24khz.yaml: hop {model.hop_length}, "
+        f"RVQ {model.vq.num_quantizers} x {model.vq.codebook_size} x "
+        f"{model.vq.dim}, caches {[len(c) for c in model.init_cache(1)]} "
+        f"tensors, slot axes {model.cache_axes()}")
+    serve_launches = phase_serve(model, params, vq_state, sr,
+                                 tag="encodec-serve")
+    phase_encodec_serve_cli(model, params, vq_state, sr, card)
+    ticks = phase_timings(model, params, vq_state, card,
+                          tag="encodec-timing")
+    del model, params, vq_state
+    rvq_kernel.reset_launches()
+    for streams in ENCODEC_BENCH_STREAMS:
+        argv = [str(streams), "--seconds", "1", "--model", "encodec"]
+        log(f"[encodec-bench] python -m hilcodec_tpu_torch.bench "
+            f"{' '.join(argv)}: {json.dumps(bench.run(argv))}")
+    bench_launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    log(f"[encodec-bench] rvq_cascade launches over both runs "
+        f"{bench_launches} (n = 8)")
+    trainer, state, train = phase_train_full(card, ENCODEC_CONFIG,
+                                             tag="encodec-train")
+    # torch.utils.flop_counter does not count cuDNN's LSTM: its products,
+    # two LSTMs of 2 layers x 512 over 24 x 75 frames, forward (16 H^2 a
+    # row and layer) and backward (twice that)
+    lstm_flops = 2 * 2 * 3 * 16 * 512 ** 2 * TRAIN_BATCH * 75
+    log(f"[encodec-train] the LSTMs' products, not in the counter above: "
+        f"{lstm_flops / 1e12:.3f} TFLOP a step")
+    # every dropout depth the path draws: the ring of the kernel's plan
+    # is min(4, n) at M = 1800
+    phase_train_tokens(trainer, state, depths=range(1, 33),
+                       tag="encodec-train-tokens")
+    del trainer, state
+    torch.cuda.empty_cache()
+    phase_train_parity(ENCODEC_CONFIG, tag="encodec-train-parity")
+    return dict(serve_launches=serve_launches, bench_launches=bench_launches,
+                ticks=ticks, train=train)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1763,6 +1951,7 @@ def main() -> int:
     phase_bench()
     del model, params, vq_state
     train, tools = phase_train(line)
+    encodec = phase_encodec(line)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -1777,9 +1966,23 @@ def main() -> int:
         "launches_frame_path": frame_launches[rvq_kernel.KERNEL],
         "launches_train_path": train["launches"],
         "launches_tools_path": tools["launches"],
+        "launches_encodec_bench": encodec["bench_launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]
+    # the same kernel at K2's shape (n_q = 32), on the EnCodec serving path
+    # at M = SERVE_SLOTS rows, and its training path at M = 1800
+    ms, plain_ms, bound_ms, bound_by = timings[(SERVE_SLOTS, 32)]
+    kernels.append({
+        "name": f"{rvq_kernel.KERNEL}@n_q=32", "route": "cuda",
+        "source": rvq_kernel.SOURCE,
+        "replaces": "hilcodec_tpu/ops/pallas_rvq.py:130",
+        "launches": encodec["serve_launches"],
+        "launches_train_path": encodec["train"]["launches"],
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms_m1800": timings[(1800, 32)][0],
+        "bound_ms_m1800": timings[(1800, 32)][2], "library_ms": None})
     for mod, replaces in ((decoder_kernel,
                            "hilcodec_tpu/ops/pallas_decoder.py:490"),
                           (encoder_kernel,

@@ -3,11 +3,13 @@
 Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
       [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
-      [--device D]
+      [--model hilcodec|encodec] [--device D]
 
-The model is the flagship operating point of bench.py: HILCodec defaults
-with both res_scale set, seeded init, N(0, 1) codebooks, 8 quantizers,
-folded params. It times `encode_stream` then `decode_stream` (frame kernels
+The model is the operating point of bench.py for its family: HILCodec
+defaults with both res_scale set (the flagship), or `--model encodec`,
+EnCodec defaults (SEANet + 2-layer LSTM bottleneck); seeded init, N(0, 1)
+codebooks, 8 quantizers, folded params. It times `encode_stream` then
+`decode_stream` (frame kernels
 with --megakernel; the plain frame step by default, as in the JAX
 package), or `encode_decode_stream` with --fused, over S seconds of audio
 per stream: one warm-up call, then 3 timed calls, each ending in a device
@@ -19,8 +21,9 @@ another device, and raises without CUDA.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} with
 vs_baseline = value / 100 (the rebuild target of bench.py). The metric
-names start with `torch_`, apart from bench.py's TPU record, and the unit
-names the device.
+names start with `torch_`, apart from bench.py's TPU record, take
+bench.py's `_{model}` suffix for a family other than HILCodec, and the
+unit names the device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from . import resolve_device, set_f32_parity_mode
 from .models.codec import CodecModel
+from .models.encodec import EncodecModel
 from .models.hilcodec import HILCodec
 from .ops.rvq import ResidualVQ
 
@@ -45,6 +49,7 @@ DISPATCH_BLOCKING = 100
 DISPATCH_PIPELINED = 200
 # bench.py options the port does not have yet
 _NOT_PORTED = ("--mesh", "--dtype", "--depthwise", "--unroll", "--chunks")
+MODELS = ("hilcodec", "encodec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +61,7 @@ class Args:
     dispatch: bool = False
     device: Optional[str] = None
     frames: int = 1
+    model: str = "hilcodec"
 
 
 def _value(argv: List[str], flag: str) -> str:
@@ -69,19 +75,23 @@ def _value(argv: List[str], flag: str) -> str:
 
 def parse_args(argv: List[str]) -> Args:
     """[streams] [--seconds S] [--frames F] [--megakernel|--no-megakernel]
-    [--fused] [--dispatch] [--device D]; fails fast on malformed or unported
-    options."""
+    [--fused] [--dispatch] [--model M] [--device D]; fails fast on
+    malformed or unported options."""
     argv = list(argv)
     for flag in _NOT_PORTED:
         if flag in argv:
             sys.exit(f"error: {flag} is not ported to hilcodec_tpu_torch yet "
                      f"(see ROADMAP.md)")
+    model = "hilcodec"
     if "--model" in argv:
-        name = _value(argv, "--model")
-        if name != "hilcodec":
-            sys.exit(f"error: --model {name!r} is not ported to "
+        model = _value(argv, "--model")
+        if model not in MODELS:
+            sys.exit(f"error: --model {model!r} is not ported to "
                      f"hilcodec_tpu_torch yet (see ROADMAP.md)")
     mega = "--megakernel" in argv and "--no-megakernel" not in argv
+    if mega and model != "hilcodec":
+        sys.exit(f"error: --megakernel: the frame kernels run HILCodec "
+                 f"only, not --model {model}")
     fused, dispatch = "--fused" in argv, "--dispatch" in argv
     argv = [a for a in argv if a not in ("--megakernel", "--no-megakernel",
                                          "--fused", "--dispatch")]
@@ -117,16 +127,26 @@ def parse_args(argv: List[str]) -> Args:
         sys.exit(f"error: streams must be an integer, got {argv[0]!r}")
     if streams < 1 or len(argv) > 1:
         sys.exit("error: one positive stream count expected")
-    return Args(streams, seconds, mega, fused, dispatch, device, frames)
+    return Args(streams, seconds, mega, fused, dispatch, device, frames,
+                model)
+
+
+def _bench_vq() -> ResidualVQ:
+    return ResidualVQ(dim=128, codebook_size=1024, num_quantizers=8,
+                      kmeans_init=False)
 
 
 def build_bench_model(device: torch.device) -> CodecModel:
     """The flagship streaming operating point of bench.py."""
     codec = HILCodec(res_scale_enc=0.5773502691896258,
                      res_scale_dec=0.5773502691896258)
-    return CodecModel(codec, ResidualVQ(dim=128, codebook_size=1024,
-                                        num_quantizers=8, kmeans_init=False),
-                      device)
+    return CodecModel(codec, _bench_vq(), device)
+
+
+def build_encodec_bench_model(device: torch.device) -> CodecModel:
+    """bench.py's `--model encodec` point: EncodecModel defaults (SEANet
+    + 2-layer LSTM bottleneck), 8 quantizers."""
+    return CodecModel(EncodecModel(), _bench_vq(), device)
 
 
 def bench_params(model: CodecModel):
@@ -194,6 +214,8 @@ def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
         dt += time.perf_counter() - t0
     rtf = args.streams * n_frames * hop / SAMPLE_RATE / (dt / REPS)
     metric = "torch_streaming_encdec_rtf"
+    if args.model != "hilcodec":
+        metric += f"_{args.model}"
     if args.megakernel:
         metric += "_megakernel"
     if args.fused:
@@ -238,6 +260,8 @@ def dispatch_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
     frame_ms = hop / SAMPLE_RATE * 1e3
     metric = "torch_per_dispatch_frame_latency_ms"
+    if args.model != "hilcodec":
+        metric += f"_{args.model}"
     if args.megakernel:
         metric += "_megakernel"
     return {"metric": metric, "value": round(p50, 3),
@@ -254,7 +278,9 @@ def run(argv: List[str]) -> dict:
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_f32_parity_mode()
-    model = build_bench_model(device)
+    build = (build_encodec_bench_model if args.model == "encodec"
+             else build_bench_model)
+    model = build(device)
     params, vq_state = bench_params(model)
     bench = dispatch_bench if args.dispatch else stream_bench
     return bench(model, params, vq_state, args)

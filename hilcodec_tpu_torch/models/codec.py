@@ -1,7 +1,9 @@
 """Full codec: encoder -> RVQ -> decoder, offline and streaming.
 
-Counterpart of `hilcodec_tpu/models/codec.py`. `forward` is the training
-graph (encoder, training RVQ pass, decoder). The streaming drivers are
+Counterpart of `hilcodec_tpu/models/codec.py`: one codec of any ported
+family (HILCodec, `models/hilcodec.py`; EnCodec, `models/encodec.py`)
+with its residual VQ, built by `models/registry.py`. `forward` is the
+training graph (encoder, training RVQ pass, decoder). The streaming drivers are
 Python loops over frames (the JAX package's `lax.scan`), one encoder /
 decoder step per frame, with the caches in the JAX order and the JAX
 output shapes (tokens `[n, B, L]`, wav `[B, 1, L*hop]`). The quantizer is
@@ -10,7 +12,8 @@ version for CPU tensors only. The streaming drivers take
 `frames_per_step` frames a step (1 by default), as the JAX drivers do.
 `encode_stream` / `decode_stream` take `megakernel=True` to run each step
 as one launch of the encoder / decoder frame kernel; it is off by default,
-as in the JAX package, whose automatic choice never selects it.
+as in the JAX package, whose automatic choice never selects it, and a
+codec the frame kernels do not cover (EnCodec) raises for it.
 """
 
 from __future__ import annotations
@@ -41,36 +44,59 @@ def _encoder_megakernel(encoder) -> encoder_kernel.EncoderMegakernel:
     return encoder_kernel.EncoderMegakernel(encoder)
 
 
+def vq_from_kwargs(model_kwargs: Dict[str, Any]) -> Q.ResidualVQ:
+    """The residual VQ of a YAML `model_kwargs` (its `vq` and `vq_kwargs`;
+    the JAX registry's `_vq_from_kwargs`)."""
+    vq_name = model_kwargs.get("vq", "ResidualVQ")
+    if vq_name != "ResidualVQ":
+        raise NotImplementedError(
+            f"vq {vq_name!r} is not ported yet (see ROADMAP.md)")
+    vq_kwargs = dict(model_kwargs.get("vq_kwargs") or {})
+    return Q.ResidualVQ(
+        dim=vq_kwargs.get("dim", 128),
+        codebook_size=vq_kwargs.get("codebook_size", 1024),
+        num_quantizers=vq_kwargs.get("num_quantizers", 8),
+        kmeans_init=vq_kwargs.get("kmeans_init", True),
+        decay=vq_kwargs.get("decay", 0.99),
+        ema_num_threshold=vq_kwargs.get("ema_num_threshold", 0.0),
+        ema_num_initial=vq_kwargs.get("ema_num_initial", 1.0),
+        dropout=vq_kwargs.get("dropout", False),
+        dropout_index=tuple(vq_kwargs["dropout_index"])
+        if vq_kwargs.get("dropout_index") else None)
+
+
+def slot_axes(caches_a: List[torch.Tensor],
+              caches_b: List[torch.Tensor]) -> List[int]:
+    """The axis on which each pair of cache tensors, made at two batch
+    sizes, differ in length: its batch (slot) axis."""
+    return [next(i for i, (m, n) in enumerate(zip(a.shape, b.shape))
+                 if m != n) for a, b in zip(caches_a, caches_b)]
+
+
+def _require_frame_kernels(codec) -> None:
+    """The frame kernels cover HILCodec only (JAX `_megakernel_supported`;
+    the kernels' builders refuse a HILCodec variant they do not cover)."""
+    if not isinstance(codec, HILCodec):
+        raise ValueError(f"megakernel=True: the frame kernels run HILCodec "
+                         f"only, not {type(codec).__name__}; stream it with "
+                         f"megakernel=False")
+
+
 @dataclasses.dataclass(frozen=True)
 class CodecModel:
-    """HILCodec + residual VQ, bound to the device it runs on."""
-    codec: HILCodec
+    """A codec (HILCodec or EnCodec) + residual VQ, bound to the device it
+    runs on."""
+    codec: Any
     vq: Q.ResidualVQ
     device: torch.device
 
     @classmethod
     def from_config(cls, model_kwargs: Dict[str, Any],
                     device=None) -> "CodecModel":
-        """Build from a YAML `model_kwargs`; `device=None` means CUDA and
-        raises when it is unavailable."""
-        vq_name = model_kwargs.get("vq", "ResidualVQ")
-        if vq_name != "ResidualVQ":
-            raise NotImplementedError(
-                f"vq {vq_name!r} is not ported yet (see ROADMAP.md)")
-        vq_kwargs = dict(model_kwargs.get("vq_kwargs", {}))
-        vq = Q.ResidualVQ(
-            dim=vq_kwargs.get("dim", 128),
-            codebook_size=vq_kwargs.get("codebook_size", 1024),
-            num_quantizers=vq_kwargs.get("num_quantizers", 8),
-            kmeans_init=vq_kwargs.get("kmeans_init", True),
-            decay=vq_kwargs.get("decay", 0.99),
-            ema_num_threshold=vq_kwargs.get("ema_num_threshold", 0.0),
-            ema_num_initial=vq_kwargs.get("ema_num_initial", 1.0),
-            dropout=vq_kwargs.get("dropout", False),
-            dropout_index=tuple(vq_kwargs["dropout_index"])
-            if vq_kwargs.get("dropout_index") else None)
-        return cls(HILCodec.from_config(model_kwargs), vq,
-                   resolve_device(device))
+        """HILCodec from a YAML `model_kwargs`; `device=None` means CUDA
+        and raises when it is unavailable."""
+        return cls(HILCodec.from_config(model_kwargs),
+                   vq_from_kwargs(model_kwargs), resolve_device(device))
 
     @property
     def hop_length(self) -> int:
@@ -163,6 +189,7 @@ class CodecModel:
         books = vq_state["embed"]
         step = self.codec.encoder.step
         if megakernel:
+            _require_frame_kernels(self.codec)
             mk = _encoder_megakernel(self.codec.encoder)
             cache, step = mk.cache_to_time_major(cache), mk.step
         toks = []
@@ -192,6 +219,7 @@ class CodecModel:
                              f"frames_per_step={f}")
         step = self.codec.decoder.step
         if megakernel:
+            _require_frame_kernels(self.codec)
             mk = _decoder_megakernel(self.codec.decoder)
             cache, step = mk.cache_to_time_major(cache), mk.step
         outs = []
@@ -235,6 +263,12 @@ class CodecModel:
         """Zero (encoder, decoder) caches, on the model's device unless
         another is named."""
         return self.codec.init_cache(batch, dtype, device or self.device)
+
+    def cache_axes(self) -> Tuple[List[int], List[int]]:
+        """The batch (slot) axis of each (encoder, decoder) cache tensor:
+        0 for a conv cache, 1 for an LSTM's [layers, B, H] state."""
+        one, two = self.codec.init_cache(1), self.codec.init_cache(2)
+        return slot_axes(one[0], two[0]), slot_axes(one[1], two[1])
 
     def fold_params(self, params: Params) -> Params:
         """Deployment fold: weight norm removed, static scales merged."""

@@ -84,6 +84,7 @@ class Conv1d:
     bias: bool = True
     norm: str = R.WEIGHT_NORM
     nonlinearity: str = "linear"
+    pad_mode: str = "constant"   # "reflect": the EnCodec family's default
 
     def init(self, gen: torch.Generator) -> Params:
         fan_in = self.in_channels // self.groups * self.kernel_size
@@ -107,7 +108,7 @@ class Conv1d:
         w, b = self.weight(params), params.get("b")
         if self.kernel_size > 1:
             return C.causal_conv1d(x, w, b, self.stride, self.dilation,
-                                   self.groups)
+                                   self.groups, pad_mode=self.pad_mode)
         return C.conv1d(x, w, b, self.stride, self.dilation, self.groups)
 
     def apply_nopad(self, params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,26 @@
 """Model registry: config `model:` name -> CodecModel builder.
 
-Only the HILCodec family is ported; the others raise and point at the
-roadmap."""
+The HILCodec and EnCodec families are ported; avocodo and audiodec raise
+and point at the roadmap."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from .codec import CodecModel
+from .. import resolve_device
+from .codec import CodecModel, vq_from_kwargs
+from .encodec import EncodecModel
 
-_NOT_PORTED = ("encodec", "avocodo", "audiodec")
+_NOT_PORTED = ("avocodo", "audiodec")
+# the JAX registry's default stack when an EnCodec config has no vq_kwargs
+_ENCODEC_VQ = {"dim": 128, "codebook_size": 1024, "num_quantizers": 32}
+
+
+def build_encodec(model_kwargs: Dict[str, Any], device=None) -> CodecModel:
+    kw = dict(model_kwargs)
+    kw["vq_kwargs"] = kw.get("vq_kwargs") or dict(_ENCODEC_VQ)
+    return CodecModel(EncodecModel.from_config(kw), vq_from_kwargs(kw),
+                      resolve_device(device))
 
 
 def build_codec_model(name: str, model_kwargs: Dict[str, Any],
@@ -18,6 +29,8 @@ def build_codec_model(name: str, model_kwargs: Dict[str, Any],
     when None)."""
     if name == "hilcodec":
         return CodecModel.from_config(model_kwargs, device=device)
+    if name == "encodec":
+        return build_encodec(model_kwargs, device=device)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model family {name!r} is not ported to hilcodec_tpu_torch yet; "

@@ -11,15 +11,20 @@ The semantics are the JAX package's, not torch's `SConvTranspose1d` trim:
     full transposed conv cut at L*s (the JAX right pad is s-1 on an
     lhs-dilated conv); a streaming step keeps floor(d(k-1)/s) input
     frames and drops the first cache_len*s output samples.
+`pad_mode="reflect"` (the EnCodec family's default) pads the batched conv
+by reflection as `jnp.pad(mode="reflect")` does, which follows numpy and
+reflects again when the pad is as long as the input or longer (torch's
+`F.pad` raises there); the streaming step keeps zero caches either way.
 These are plain cuDNN / ATen convolutions (the JAX package runs them as
-XLA convolutions, not as Pallas kernels). On the CPU, two forms must not
-let a row's result depend on the batch, so that a stream gives the same
-bits alone as inside a slot batch: oneDNN picks its kernel for a pointwise
-(1x1) or a 1-output-channel convolution by batch size. For CPU tensors
-`conv1d` computes a pointwise conv as `row_matmul` over time-major rows
-and a 1-output-channel conv as an explicit k-tap sum followed by one
-channel reduction. Depthwise, transposed, strided and 1-input-channel
-convolutions are batch-invariant as they are. On the card every
+XLA convolutions, not as Pallas kernels). On the CPU, no form may let a
+row's result depend on the batch, so that a stream gives the same bits
+alone as inside a slot batch: oneDNN picks its kernel for a dense
+convolution (groups 1, several input channels; pointwise, strided or
+transposed too) by batch size. For CPU tensors `conv1d` computes a dense
+conv as `row_matmul` over its k-tap windows, and `conv_transpose1d` a
+dense transposed conv as one `row_matmul` followed by an overlap-add of
+its k taps. Depthwise and 1-input-channel convolutions are
+batch-invariant as they are. On the card every
 convolution stays with cuDNN, which is faster there and not bitwise
 batch-invariant in any form.
 """
@@ -65,21 +70,37 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         x = F.pad(x, padding)
     w = w.to(x.dtype)
     b = None if b is None else b.to(x.dtype)
-    cpu = x.device.type == "cpu"
-    if cpu and groups == 1 and stride == 1 and w.shape[-1] == 1:
-        y = row_matmul(x.transpose(1, 2), w[:, :, 0].T).transpose(1, 2)
-        return y if b is None else y + b[None, :, None]
-    if cpu and groups == 1 and stride == 1 and w.shape[0] == 1:
-        k = w.shape[-1]
-        t = x.shape[-1] - dilation * (k - 1)
-        y = None
-        for j in range(k):
-            term = (x[:, :, j * dilation:j * dilation + t]
-                    * w[0, :, j][None, :, None])
-            y = term if y is None else y + term
-        y = torch.sum(y, dim=1, keepdim=True)
+    if x.device.type == "cpu" and groups == 1 and w.shape[1] > 1:
+        # rows of k-tap windows, [B, t, Cin*k] @ [Cin*k, Cout]
+        cout, cin, k = w.shape
+        t = (x.shape[-1] - dilation * (k - 1) - 1) // stride + 1
+        taps = torch.stack([x[:, :, j * dilation:
+                              j * dilation + (t - 1) * stride + 1:stride]
+                            for j in range(k)], dim=-1)
+        rows = taps.permute(0, 2, 1, 3).reshape(x.shape[0], t, cin * k)
+        y = row_matmul(rows, w.reshape(cout, cin * k).T).transpose(1, 2)
         return y if b is None else y + b[None, :, None]
     return F.conv1d(x, w, b, stride=stride, dilation=dilation, groups=groups)
+
+
+def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """The full transposed conv (no bias), length (L-1)*s + d*(k-1) + 1.
+    A dense one on the CPU is x's time-major rows times w as one
+    `row_matmul`, then each tap j added in at offset j*d, stride s."""
+    w = w.to(x.dtype)
+    cin, cout_g, k = w.shape
+    if x.device.type != "cpu" or groups != 1 or cin == 1:
+        return F.conv_transpose1d(x, w, None, stride=stride,
+                                  dilation=dilation, groups=groups)
+    B, L = x.shape[0], x.shape[-1]
+    prod = row_matmul(x.transpose(1, 2), w.reshape(cin, cout_g * k))
+    prod = prod.reshape(B, L, cout_g, k).permute(0, 2, 1, 3)
+    y = x.new_zeros((B, cout_g, (L - 1) * stride + dilation * (k - 1) + 1))
+    for j in range(k):
+        y[:, :, j * dilation:j * dilation + (L - 1) * stride + 1:stride] += \
+            prod[..., j]
+    return y
 
 
 def causal_pad_total(kernel_size: int, stride: int = 1,
@@ -96,14 +117,45 @@ def extra_pad_for_full_windows(length: int, kernel_size: int, stride: int,
     return ideal - length
 
 
+def reflect_index(length: int, left: int, right: int,
+                  device=None) -> torch.Tensor:
+    """Source indices of numpy's reflect pad of a length-`length` axis by
+    (left, right): the input extended with period 2*(length-1), so a pad
+    longer than the input reflects again."""
+    i = torch.arange(-left, length + right, device=device)
+    if length == 1:
+        return torch.zeros_like(i)
+    period = 2 * (length - 1)
+    m = torch.remainder(i, period)
+    return torch.where(m < length, m, period - m)
+
+
+def pad1d(x: torch.Tensor, padding: Tuple[int, int],
+          mode: str = "constant") -> torch.Tensor:
+    """Pad the last axis by (left, right): zeros, or numpy's reflect (an
+    index gather, defined for pads of any length)."""
+    if mode in ("constant", "zeros"):
+        return F.pad(x, padding)
+    if mode != "reflect":
+        raise NotImplementedError(f"pad_mode {mode!r} is not ported yet "
+                                  f"(see ROADMAP.md)")
+    return x.index_select(-1, reflect_index(x.shape[-1], *padding,
+                                            device=x.device))
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None, stride: int = 1,
-                  dilation: int = 1, groups: int = 1) -> torch.Tensor:
+                  dilation: int = 1, groups: int = 1,
+                  pad_mode: str = "constant") -> torch.Tensor:
     """Batched causal conv: left-pad d*(k-1)-(s-1), right-pad to a full
-    last window (zero padding, the flagship's `pad_mode: constant`)."""
+    last window; zero padding (`pad_mode: constant`, the flagship's) or
+    numpy's reflect (`reflect`, the EnCodec family's)."""
     k = w.shape[-1]
     pad_total = causal_pad_total(k, stride, dilation)
     extra = extra_pad_for_full_windows(x.shape[-1], k, stride, pad_total)
+    if pad_mode not in ("constant", "zeros"):
+        return conv1d(pad1d(x, (pad_total, extra), pad_mode), w, b, stride,
+                      dilation, groups)
     return conv1d(x, w, b, stride, dilation, groups,
                   padding=(pad_total, extra))
 
@@ -130,8 +182,7 @@ def _convt_window(x: torch.Tensor, w: torch.Tensor,
                   groups: int, start: int, length: int) -> torch.Tensor:
     """Samples [start, start+length) of the full transposed conv, with
     zeros past its end (plus bias)."""
-    y = F.conv_transpose1d(x, w.to(x.dtype), None, stride=stride,
-                           dilation=dilation, groups=groups)
+    y = conv_transpose1d(x, w, stride, dilation, groups)
     y = y[:, :, start:start + length]
     if y.shape[-1] < length:
         y = F.pad(y, (0, length - y.shape[-1]))

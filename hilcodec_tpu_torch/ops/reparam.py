@@ -3,7 +3,8 @@
 Counterpart of `hilcodec_tpu/ops/reparam.py` for the norm the flagship
 configs use. A weight-normed conv holds `{v, g[, b]}` with
 w = g * v / ||v||, the L2 norm taken per index of axis 0 over all other
-axes (torch's `weight_norm(dim=0)`); `fold` turns it into `{w[, b]}`.
+axes (torch's `weight_norm(dim=0)`); `fold` turns it into `{w[, b]}`,
+and `fold_tree` every such dict of a whole tree.
 """
 
 from __future__ import annotations
@@ -76,3 +77,18 @@ def fold(params: ParamDict, norm: str) -> ParamDict:
     if params.get("b") is not None:
         out["b"] = params["b"]
     return out
+
+
+def fold_tree(params, norm: str = WEIGHT_NORM):
+    """Fold every `{v, g[, b]}` conv dict of a param tree into `{w[, b]}`;
+    every other node (the EnCodec LSTM's weights, say) passes through."""
+    def walk(node):
+        if isinstance(node, dict):
+            if "v" in node and "g" in node:
+                return fold(node, norm)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)

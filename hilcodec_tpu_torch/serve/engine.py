@@ -14,8 +14,12 @@ mapped onto slot rows:
 
 The caches are allocated once on the device and updated in place, row by
 row, through `torch.where` selects (the JAX engine donates and replaces
-them instead). Per tick the host uploads the [S, 1, hop] int16 frame batch
-and two boolean masks and downloads one packed int16 array; the int16 <->
+them instead). Each cache tensor is selected along its own batch axis, as
+`CodecModel.cache_axes` reads it off the shapes (axis 0 of a conv cache,
+axis 1 of an LSTM's [layers, S, H] state). The JAX engine masks axis 0 of
+every cache, which fails on EnCodec's LSTM state; the port does not.
+Per tick the host uploads the [S, 1, hop] int16 frame batch and two
+boolean masks and downloads one packed int16 array; the int16 <->
 f32 conversion runs on the device, with round-half-even and clipping, so
 the outputs equal rounding the solo-stream float outputs on the host.
 The engine runs on CUDA unless `device` names another device; on CUDA it
@@ -58,10 +62,13 @@ def _enc16(wav: torch.Tensor) -> torch.Tensor:
 
 
 def _select_rows(dst: List[torch.Tensor], src: List[torch.Tensor],
-                 mask: torch.Tensor) -> None:
-    """dst[i][s] = src[i][s] where mask[s], in place."""
-    for d, s in zip(dst, src):
-        torch.where(mask.reshape((-1,) + (1,) * (d.ndim - 1)), s, d, out=d)
+                 mask: torch.Tensor, axes: List[int]) -> None:
+    """dst[i][..., s, ...] = src[i][..., s, ...] where mask[s], in place,
+    with s on axis axes[i] of tensor i (its batch axis)."""
+    for d, s, a in zip(dst, src, axes):
+        shape = [1] * d.ndim
+        shape[a] = -1
+        torch.where(mask.reshape(shape), s, d, out=d)
 
 
 class SlotEngine:
@@ -98,6 +105,7 @@ class SlotEngine:
         self._cache_dec: List[torch.Tensor] = []
         self._init_enc: List[torch.Tensor] = []
         self._init_dec: List[torch.Tensor] = []
+        self._axes_enc, self._axes_dec = model.cache_axes()
         self._alloc_caches()
 
         # host state, mutated only under _lock (collect/attach/detach);
@@ -130,16 +138,18 @@ class SlotEngine:
         if any_reset:
             _select_rows(self._cache_enc,
                          [i.expand_as(c) for i, c in
-                          zip(self._init_enc, self._cache_enc)], reset_m)
+                          zip(self._init_enc, self._cache_enc)], reset_m,
+                         self._axes_enc)
             _select_rows(self._cache_dec,
                          [i.expand_as(c) for i, c in
-                          zip(self._init_dec, self._cache_dec)], reset_m)
+                          zip(self._init_dec, self._cache_dec)], reset_m,
+                         self._axes_dec)
         if self.mode == "roundtrip":
             tok, wav, ce, cd = model.encode_decode_stream(
                 params, vq_state, _dec16(x), list(self._cache_enc),
                 list(self._cache_dec), n=n)
-            _select_rows(self._cache_enc, ce, active_m)
-            _select_rows(self._cache_dec, cd, active_m)
+            _select_rows(self._cache_enc, ce, active_m, self._axes_enc)
+            _select_rows(self._cache_dec, cd, active_m, self._axes_dec)
             # tokens ride as extra int16 columns after the hop PCM samples,
             # so the host fetch is one transfer: [S, 1, hop + n_q]
             return torch.cat([_enc16(wav),
@@ -147,11 +157,11 @@ class SlotEngine:
         if self.mode == "encode":
             tok, ce = model.encode_stream(params, vq_state, _dec16(x),
                                           list(self._cache_enc), n=n)
-            _select_rows(self._cache_enc, ce, active_m)
+            _select_rows(self._cache_enc, ce, active_m, self._axes_enc)
             return tok.to(torch.int16)                    # [n_q, S, 1]
         wav, cd = model.decode_stream(params, vq_state, x.long(),
                                       list(self._cache_dec))
-        _select_rows(self._cache_dec, cd, active_m)
+        _select_rows(self._cache_dec, cd, active_m, self._axes_dec)
         return _enc16(wav)                                # [S, 1, hop]
 
     # ------------------------------------------------------------ host side

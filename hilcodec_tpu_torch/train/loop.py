@@ -1,6 +1,7 @@
 """The training loop (`hilcodec_tpu/train/loop.py`), one device.
 
-`build_trainer(hps, device)` builds the HILCodec GAN trainer from a config;
+`build_trainer(hps, device)` builds the GAN trainer of a HILCodec or
+EnCodec config (one balancer trainer for both, as in the JAX package);
 `TrainLoop` runs epochs in the JAX loop's order: the train steps on a
 DirectoriesDataset (k-means init of the codebooks on the first batch;
 with `train.plot_param_and_grad`, parameter and gradient histograms of the
@@ -80,10 +81,10 @@ def _optim_sched_from_config(hps):
 
 
 def build_trainer(hps, device=None) -> Trainer:
-    """The HILCodec GAN trainer of a config on `device` (CUDA when None,
-    which must then be available). `train.fbd_lowering` may name either
-    JAX lowering; both are the filter-bank discriminator's one conv1d
-    lowering here."""
+    """The GAN trainer of a HILCodec or EnCodec config on `device` (CUDA
+    when None, which must then be available). `train.fbd_lowering` may
+    name either JAX lowering; both are the filter-bank discriminator's one
+    conv1d lowering here."""
     hp = hps.train
     lowering = hp.get("fbd_lowering", "conv2d")
     if lowering not in ("conv2d", "bands1d"):
@@ -99,8 +100,8 @@ def build_trainer(hps, device=None) -> Trainer:
     if hp.get("depthwise_lowering", "conv") != "conv":
         raise NotImplementedError(f"train.depthwise_lowering {_NOT_PORTED}")
     name = hps.get("model", "hilcodec")
-    if name != "hilcodec" or hp.get("trainer", None) not in (None,
-                                                             "hilcodec"):
+    if name not in ("hilcodec", "encodec") or \
+            hp.get("trainer", None) not in (None, "hilcodec"):
         raise NotImplementedError(f"training model {name!r} {_NOT_PORTED}")
     model = build_codec_model(name, _plain(hps.model_kwargs),
                               device=resolve_device(device))

@@ -12,6 +12,7 @@ import torch
 
 from hilcodec_tpu_torch import bench
 from hilcodec_tpu_torch.models.codec import CodecModel
+from hilcodec_tpu_torch.models.encodec import EncodecModel
 from hilcodec_tpu_torch.models.hilcodec import HILCodec
 from hilcodec_tpu_torch.ops.rvq import ResidualVQ
 
@@ -64,9 +65,29 @@ def test_unported_options_point_at_roadmap(flag):
 
 
 def test_unported_model_exits_with_roadmap_pointer():
-    out = _run(["--model", "encodec"])
+    out = _run(["--model", "avocodo"])
     assert out.returncode != 0 and "ROADMAP.md" in out.stderr
     assert out.stdout == ""
+
+
+def test_encodec_model_parses_and_names_its_metric(monkeypatch, capsys):
+    """--model encodec is bench.py's EnCodec point (8 quantizers); its
+    metric takes bench.py's `_encodec` suffix, and the frame kernels,
+    which run HILCodec only, are refused for it."""
+    args = bench.parse_args(["4", "--model", "encodec"])
+    assert args.model == "encodec" and args.streams == 4
+    with pytest.raises(SystemExit, match="HILCodec only"):
+        bench.parse_args(["4", "--model", "encodec", "--megakernel"])
+    model = bench.build_encodec_bench_model(torch.device("cpu"))
+    assert model.hop_length == 320 and model.vq.num_quantizers == 8
+    assert model.codec.lstm == 2 and model.codec.channels_enc == 32
+    monkeypatch.setattr(bench, "build_encodec_bench_model",
+                        lambda device: _tiny_encodec(device))
+    bench.main(["2", "--seconds", "0.002", "--device", "cpu", "--model",
+                "encodec", "--frames", "2"])
+    res = json.loads(capsys.readouterr().out)
+    assert res["metric"] == "torch_streaming_encdec_rtf_encodec_f2"
+    assert "device=cpu" in res["unit"] and res["value"] >= 0
 
 
 def test_no_cuda_without_device_exits():
@@ -82,6 +103,14 @@ def _tiny_model(device):
         HILCodec(channels_enc=8, channels_dec=8, n_residual_enc=1,
                  n_residual_dec=1, strides=(4, 2), n_fft_base=16, vq_dim=16,
                  res_scale_enc=0.577, res_scale_dec=0.577),
+        ResidualVQ(dim=16, codebook_size=32, num_quantizers=3,
+                   kmeans_init=False), device)
+
+
+def _tiny_encodec(device):
+    return CodecModel(
+        EncodecModel(channels_enc=4, channels_dec=4, strides=(4, 2), lstm=1,
+                     vq_dim=16),
         ResidualVQ(dim=16, codebook_size=32, num_quantizers=3,
                    kmeans_init=False), device)
 

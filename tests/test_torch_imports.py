@@ -117,7 +117,7 @@ def test_config_builds_flagship_shapes():
                                                                    128)
 
 
-@pytest.mark.parametrize("family", ["encodec", "avocodo", "audiodec"])
+@pytest.mark.parametrize("family", ["avocodo", "audiodec"])
 def test_unported_families_point_at_roadmap(family):
     from hilcodec_tpu_torch.models.registry import build_codec_model
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -12,6 +12,12 @@ sum and one channel reduction; oneDNN's convolution picked its kernel by
 batch size there).
 The wire conversion itself is exact: it rounds half to even, as np.round
 does. Mirrors tests/test_serve.py.
+
+EnCodec's caches put the slot on axis 1 of its LSTM state ([layers, S, H])
+and on axis 0 elsewhere; the engine selects each tensor on its own axis.
+Its engine streams equal the port's solo streams bitwise and the JAX
+package's solo `encode_decode_stream` within 1e-5 (the JAX engine itself
+cannot serve EnCodec: it masks axis 0 of every cache).
 """
 
 import asyncio
@@ -22,13 +28,33 @@ import numpy as np
 import pytest
 import torch
 
-from hilcodec_tpu_torch.models.codec import CodecModel
+import jax
+import jax.numpy as jnp
+
+from hilcodec_tpu.models.codec import CodecModel as JaxCodecModel
+from hilcodec_tpu.models.encodec import EncodecModel as JaxEncodecModel
+from hilcodec_tpu.ops.rvq import ResidualVQ as JaxResidualVQ
+
+from hilcodec_tpu_torch.models.codec import CodecModel, slot_axes
+from hilcodec_tpu_torch.models.encodec import EncodecModel
 from hilcodec_tpu_torch.models.hilcodec import HILCodec
 from hilcodec_tpu_torch.ops import rvq_kernel
 from hilcodec_tpu_torch.ops.rvq import ResidualVQ
 from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
+from hilcodec_tpu_torch.utils import params as P
+
+from torch_port_common import jax_tree, seeded_flat
 
 CPU = torch.device("cpu")
+# a two-stage EnCodec with a 2-layer LSTM of width 32 (reflect padding)
+ENCODEC = dict(channels_enc=8, channels_dec=8, strides=(4, 2), lstm=2,
+               vq_dim=16, n_residual_layers=1)
+ENCODEC_VQ = dict(dim=16, codebook_size=32, num_quantizers=4,
+                  kmeans_init=False)
+# three streams attach at different ticks, share and skip ticks, and
+# detach at different times (at most three at once)
+SCHEDULE = [("a",), ("a", "b"), ("a", "b"), ("a", "b", "c"), ("a", "c"),
+            ("a", "b", "c"), ("b", "c"), ("b", "c"), ("c",)]
 
 
 @pytest.fixture(scope="module")
@@ -43,6 +69,23 @@ def tiny():
     params, vq_state = model.init(gen)
     vq_state["embed"] = vq_state["embed"] * 2.0
     return model, params, vq_state
+
+
+@pytest.fixture(scope="module")
+def encodec():
+    """A tiny EnCodec on both sides with JAX's seeded params and N(0, 1/4)
+    codebooks."""
+    jm = JaxCodecModel(JaxEncodecModel(**ENCODEC),
+                       JaxResidualVQ(**ENCODEC_VQ))
+    model = CodecModel(EncodecModel(**ENCODEC), ResidualVQ(**ENCODEC_VQ),
+                       CPU)
+    template, _ = jm.init(jax.random.PRNGKey(0))
+    flat = seeded_flat(template)
+    params = P.from_flat(flat, model.param_template(False))
+    books = (np.random.default_rng(1).standard_normal((4, 32, 16)) * 0.5
+             ).astype(np.float32)
+    return (model, params, {"embed": torch.from_numpy(books)}, jm,
+            jax_tree(template, flat))
 
 
 def _q16(x):
@@ -78,23 +121,11 @@ def _stream_ref(model, params, vq_state, wav, mode="roundtrip"):
     return tok.numpy()[:, 0, :], out.numpy()[0, 0]
 
 
-def test_engine_parity_staggered_streams(tiny, rng):
-    """Three streams attach at different ticks, skip ticks and detach at
-    different times; each one's tokens and int16 PCM equal its solo run."""
-    model, params, vq_state = tiny
-    hop = model.hop_length
-    eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
-                     device="cpu")
-    wavs = {k: (rng.standard_normal(hop * 6) * 0.3).astype(np.float32)
-            for k in "abc"}
-    refs = {k: _stream_ref(model, params, vq_state, _dq16(_q16(w)))
-            for k, w in wavs.items()}
-    frames = {k: _frames(w, hop) for k, w in wavs.items()}
-    got = {k: {"tokens": [], "pcm": []} for k in wavs}
-    slot_of, cursor = {}, {k: 0 for k in wavs}
-    schedule = [("a",), ("a", "b"), ("a", "b"), ("a", "b", "c"),
-                ("a", "c"), ("a", "b", "c"), ("b", "c"), ("b", "c"),
-                ("c",)]
+def _run_schedule(eng, frames, schedule):
+    """Attach each stream at its first tick, detach it after its last
+    frame; returns {stream: (tokens [n_q, L], pcm [L*hop])}."""
+    got = {k: {"tokens": [], "pcm": []} for k in frames}
+    slot_of, cursor = {}, {k: 0 for k in frames}
     for tick_streams in schedule:
         for k in tick_streams:
             if k not in slot_of:
@@ -108,11 +139,26 @@ def test_engine_parity_staggered_streams(tiny, rng):
         for k, i in cursor.items():
             if k in slot_of and i == len(frames[k]):
                 eng.detach(slot_of.pop(k))
-    for k in wavs:
-        ref_tok, ref_pcm = refs[k]
-        np.testing.assert_array_equal(np.stack(got[k]["tokens"], axis=1),
-                                      ref_tok)
-        _assert_pcm(np.concatenate(got[k]["pcm"]), ref_pcm)
+    return {k: (np.stack(v["tokens"], axis=1), np.concatenate(v["pcm"]))
+            for k, v in got.items()}
+
+
+def test_engine_parity_staggered_streams(tiny, rng):
+    """Three streams attach at different ticks, skip ticks and detach at
+    different times; each one's tokens and int16 PCM equal its solo run."""
+    model, params, vq_state = tiny
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
+                     device="cpu")
+    wavs = {k: (rng.standard_normal(hop * 6) * 0.3).astype(np.float32)
+            for k in "abc"}
+    got = _run_schedule(eng, {k: _frames(w, hop) for k, w in wavs.items()},
+                        SCHEDULE)
+    for k, w in wavs.items():
+        ref_tok, ref_pcm = _stream_ref(model, params, vq_state,
+                                       _dq16(_q16(w)))
+        np.testing.assert_array_equal(got[k][0], ref_tok)
+        _assert_pcm(got[k][1], ref_pcm)
 
 
 @pytest.mark.parametrize("part", ["encoder", "decoder"])
@@ -297,3 +343,81 @@ def test_tcp_roundtrip_two_clients(tiny, rng):
         _assert_pcm(pcm, ref_pcm)
     assert eng.stats["frames"] == 12 and not eng.pending()
     assert rvq_kernel.LAUNCHES[rvq_kernel.KERNEL] == 0
+
+
+def test_encodec_engine_staggered_streams_at_three_slots(encodec, rng):
+    """Three EnCodec streams through a 3-slot engine, attaching, sharing
+    and skipping ticks: each equals its solo port stream bitwise (tokens
+    and int16 PCM), and its solo JAX encode_decode_stream (tokens, and the
+    float output within 1e-5)."""
+    model, params, vq_state, jm, jparams = encodec
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=3, mode="roundtrip",
+                     device="cpu")
+    wavs = {k: _dq16(_q16(rng.standard_normal(hop * 6) * 0.3))
+            for k in "abc"}
+    got = _run_schedule(eng, {k: _frames(w, hop) for k, w in wavs.items()},
+                        SCHEDULE)
+    jp = jm.fold_params(jparams)
+    jv = {"embed": jnp.asarray(vq_state["embed"].numpy())}
+    for k, w in wavs.items():
+        ref_tok, ref_pcm = _stream_ref(model, params, vq_state, w)
+        tok, pcm = got[k]
+        np.testing.assert_array_equal(tok, ref_tok)
+        _assert_pcm(pcm, ref_pcm)
+        jtok, jwav, _, _ = jm.encode_decode_stream(
+            jp, jv, jnp.asarray(w)[None, None], *jm.init_cache(1))
+        np.testing.assert_array_equal(tok, np.asarray(jtok)[:, 0])
+        np.testing.assert_allclose(ref_pcm, np.asarray(jwav)[0, 0], rtol=0,
+                                   atol=1e-5)
+
+
+def test_encodec_engine_lstm_state_rows_and_storage(encodec, rng):
+    """The LSTM's h and c are distinct storage in the engine, and a tick
+    in which slot 0 skips leaves its rows (axis 1 of h and c) unchanged
+    while slot 1's move on."""
+    model, params, vq_state, _, _ = encodec
+    hop = model.hop_length
+    eng = SlotEngine(model, params, vq_state, slots=2, mode="roundtrip",
+                     device="cpu")
+    enc_axes, dec_axes = model.cache_axes()
+    lstm = [c for c, ax in zip(eng._cache_enc + eng._cache_dec,
+                               enc_axes + dec_axes) if ax == 1]
+    assert len(lstm) == 4
+    assert len({c.data_ptr() for c in eng._cache_enc + eng._cache_dec}) == \
+        len(eng._cache_enc + eng._cache_dec)
+    a, b = eng.attach(), eng.attach()
+    for _ in range(2):
+        for s in (a, b):
+            eng.submit(s, (rng.standard_normal(hop) * 0.3).astype(np.float32))
+        eng.tick()
+    before = [c.clone() for c in lstm]
+    eng.submit(b, (rng.standard_normal(hop) * 0.3).astype(np.float32))
+    eng.tick()
+    for x, y in zip(before, lstm):
+        assert torch.equal(x[:, a], y[:, a]) and x[:, a].any()
+        assert not torch.equal(x[:, b], y[:, b])
+
+
+@pytest.mark.parametrize("part", ["encoder", "decoder"])
+def test_encodec_frame_step_rows_do_not_depend_on_the_batch(encodec, part):
+    """EnCodec's dense convs and LSTM cell on the CPU: a frame step at
+    batch 3 gives each row bitwise what that row gives alone."""
+    model, params, _, _, _ = encodec
+    fp = model.fold_params(params)[part]
+    layer = getattr(model.codec, part)
+    rng = np.random.default_rng(7)
+    shape = ((3, 1, model.hop_length) if part == "encoder"
+             else (3, layer.dimension, 1))
+    c3 = layer.init_cache(3)
+    c1 = [layer.init_cache(1) for _ in range(3)]
+    axes = slot_axes(c1[0], c3)
+    with torch.no_grad():
+        for _ in range(3):
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            y3, c3 = layer.step(fp, c3, x)
+            for r in range(3):
+                y1, c1[r] = layer.step(fp, c1[r], x[r:r + 1])
+                assert torch.equal(y3[r:r + 1], y1)
+                assert all(torch.equal(a.narrow(ax, r, 1), b)
+                           for a, b, ax in zip(c3, c1[r], axes))

@@ -29,6 +29,7 @@ from hilcodec_tpu_torch.utils.wavio import write_wav
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH = os.path.join(ROOT, "configs", "hilcodec_speech_synth.yaml")
+ENCODEC = os.path.join(ROOT, "configs", "encodec_24khz.yaml")
 SEGMENT = 2048          # >= the mel loss's largest n_fft (1024)
 
 
@@ -54,6 +55,31 @@ def cut_down(corpus: str) -> dict:
                 filelists={"valid": os.path.join(corpus, "valid.txt")})
     cfg["train"].update(batch_size=2, max_epochs=1, save_interval=1,
                         num_workers=0, n_mels_max=16)
+    cfg["valid"] = {"batch_size": 2}
+    return cfg
+
+
+def cut_down_encodec(corpus: str) -> dict:
+    """configs/encodec_24khz.yaml at a tiny width on `corpus` (a two-stage
+    EnCodec with a 2-layer LSTM of width 32, 4 quantizers with dropout,
+    one MSTFTD on complex spectra): 2 steps of batch 2 per epoch, a 2-item
+    valid filelist."""
+    with open(ENCODEC) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model_kwargs"].update(channels_enc=8, channels_dec=8,
+                               strides=[4, 2])
+    cfg["model_kwargs"]["vq_kwargs"].update(dim=16, codebook_size=32,
+                                            num_quantizers=4)
+    cfg["disc_kwargs"]["mstftd_kwargs"].update(
+        n_ffts=[64], hop_lengths=[16], win_lengths=[64], filters=4)
+    data = cfg["data"]
+    data["classes"]["clean"]["directories_to_include"] = [
+        os.path.join(corpus, "train")]
+    data.update(length=4, segment_size=SEGMENT, wav_dir=corpus,
+                filelists={"valid": os.path.join(corpus, "valid.txt")})
+    cfg["train"].update(batch_size=2, max_epochs=1, save_interval=1,
+                        num_workers=0, n_mels_max=16,
+                        plot_param_and_grad=False)
     cfg["valid"] = {"batch_size": 2}
     return cfg
 
@@ -231,3 +257,81 @@ def test_loop_names_what_it_cannot_write(setup, monkeypatch, capsys, absent,
         assert loop.pesq_epoch() == {} and loop.metrics._executor is None
     finally:
         loop._close()
+
+
+@pytest.fixture
+def setup_encodec(tmp_path):
+    make_corpus(str(tmp_path))
+    return tmp_path, cut_down_encodec(str(tmp_path))
+
+
+def test_build_trainer_from_encodec_config(setup_encodec):
+    """configs/encodec_24khz.yaml selects the shared balancer trainer: its
+    MSTFTD-only discriminators on complex spectra, its balancer keys, the
+    EnCodec codec and 32 quantizers with dropout (cut to 4 here)."""
+    from hilcodec_tpu_torch.models.encodec import EncodecModel
+    _, cfg = setup_encodec
+    tr = build_trainer(HParams(**cfg), "cpu")
+    assert isinstance(tr.model.codec, EncodecModel)
+    assert tr.model.codec.lstm == 2 and tr.model.hop_length == 8
+    assert tr.model.vq.dropout and tr.model.vq.kmeans_init
+    assert list(tr.disc.discs) == ["mstftd"]
+    assert not tr.disc.discs["mstftd"].magnitude
+    assert dict(tr.balancer.weights) == {"freq": 1.0, "mstftd_g": 3.0,
+                                         "mstftd_fm": 3.0}
+    assert tr.optim_g.betas == (0.5, 0.9) and tr.lr_g == 5e-4
+    full = build_trainer(load_config(ENCODEC), "cpu")
+    assert full.model.vq.num_quantizers == 32
+    assert full.mel_loss.transforms[-1][0] == 1024
+
+
+def test_train_loop_encodec_epoch_and_checkpoint(setup_encodec):
+    """`model: encodec` trains an epoch through the shared trainer, writes
+    its checkpoint, and a fresh loop resumes from it (the port's side of
+    tests/test_train_loop.py::test_train_loop_encodec_family)."""
+    from hilcodec_tpu_torch.models.encodec import EncodecModel
+    tmp, cfg = setup_encodec
+    loop = TrainLoop(HParams(**cfg), run_dir=str(tmp / "enc"), device="cpu")
+    assert isinstance(loop.trainer.model.codec, EncodecModel)
+    loop.init_or_resume()
+    embed0 = loop.state.vq_state["embed"].clone()
+    lstm0 = loop.state.params_g["encoder"]["lstm"]["layers"][0]["w_hh"]
+    lstm0 = lstm0.clone()
+    loop.run(max_epochs=1)
+    assert loop.epoch == 1 and loop.iteration == 2
+    assert bool(loop.state.vq_state["initted"])
+    assert not torch.equal(embed0, loop.state.vq_state["embed"])
+    assert not torch.equal(
+        lstm0, loop.state.params_g["encoder"]["lstm"]["layers"][0]["w_hh"])
+    assert ckpt.latest_checkpoint(str(tmp / "enc"))[0] == 1
+    again = TrainLoop(HParams(**cfg), run_dir=str(tmp / "enc"), device="cpu")
+    again.init_or_resume()
+    assert again.epoch == 1 and again.iteration == 2
+    for a, b in zip(P.flatten(loop.state.params_g).values(),
+                    P.flatten(again.state.params_g).values()):
+        assert torch.equal(a, b)
+
+
+def test_encodec_checkpoints_cross_both_ways(setup_encodec):
+    """An EnCodec run's .ckpt.npz, LSTM leaves included, loads in the JAX
+    package leaf for leaf, and one that JAX wrote resumes the port."""
+    tmp, cfg = setup_encodec
+    loop = TrainLoop(HParams(**cfg), run_dir=str(tmp / "port"),
+                     device="cpu")
+    loop.run()
+    path = ckpt.latest_checkpoint(str(tmp / "port"))[1]
+    template = _jax_trainer(cfg).init_state(jax.random.PRNGKey(3))
+    jstate, extras = jax_ckpt.load_checkpoint(path, template)
+    assert int(extras["epoch"]) == 1
+    ours, theirs = P.tree_to_flat(loop.state), jax_ckpt._flatten(jstate)
+    assert set(ours) == set(theirs)
+    assert ".params_g/decoder/lstm/layers/1/b_ih" in ours
+    for k, v in theirs.items():
+        np.testing.assert_array_equal(np.asarray(v), ours[k], err_msg=k)
+    jax_ckpt.save_checkpoint(str(tmp / "jax"), 1, template, {"epoch": 1})
+    back = TrainLoop(HParams(**cfg), run_dir=str(tmp / "jax"), device="cpu")
+    back.init_or_resume()
+    assert back.epoch == 1
+    resumed = P.tree_to_flat(back.state)
+    for k, v in jax_ckpt._flatten(template).items():
+        np.testing.assert_array_equal(resumed[k], np.asarray(v), err_msg=k)

@@ -30,6 +30,7 @@ from test_train_step import tiny_trainer
 
 from hilcodec_tpu_torch.models.codec import CodecModel
 from hilcodec_tpu_torch.models.discriminators import Discriminators
+from hilcodec_tpu_torch.models.encodec import EncodecModel
 from hilcodec_tpu_torch.models.hilcodec import HILCodec
 from hilcodec_tpu_torch.models.losses import MelLoss
 from hilcodec_tpu_torch.ops.rvq import ResidualVQ, RVQDraws
@@ -51,6 +52,18 @@ GRAD_FLOOR = 1e-7
 # its threshold, or the two sides could legitimately branch apart
 GATE_MARGIN = 1e-3
 SEED = 0
+# the EnCodec case: a two-stage EnCodec with a 2-layer LSTM of width 32,
+# quantizer dropout over 1-4 stages, and configs/encodec_24khz.yaml's
+# discriminators (MSTFTD on complex spectra) and balancer keys
+ENCODEC = dict(channels_enc=8, channels_dec=8, strides=(4, 2), lstm=2,
+               vq_dim=16, n_residual_layers=1)
+ENCODEC_VQ = dict(dim=16, codebook_size=32, num_quantizers=4,
+                  kmeans_init=False, decay=0.99, ema_num_threshold=0.5,
+                  ema_num_initial=0.5, dropout=True)
+ENCODEC_MSTFTD = dict(use=True, filters=4, magnitude=False, n_ffts=(64,),
+                      hop_lengths=(16,), win_lengths=(64,))
+ENCODEC_WEIGHTS = (("freq", 1.0), ("mstftd_g", 3.0), ("mstftd_fm", 3.0))
+ENCODEC_OPT = {"lr": 5e-4, "betas": [0.5, 0.9], "weight_decay": 1e-5}
 
 
 def port_tiny_trainer() -> Trainer:
@@ -128,11 +141,55 @@ def tflat(tree) -> dict:
             for k, v in P.flatten(tree).items()}
 
 
-@pytest.fixture(scope="module")
-def run():
+def jax_tiny_encodec_trainer():
+    """The JAX Trainer on a tiny EnCodec with the shipped EnCodec config's
+    discriminators (MSTFTD only, complex spectra) and balancer keys."""
+    from hilcodec_tpu.models.codec import CodecModel as JaxCodecModel
+    from hilcodec_tpu.models.discriminators import \
+        Discriminators as JaxDiscriminators
+    from hilcodec_tpu.models.encodec import EncodecModel as JaxEncodec
+    from hilcodec_tpu.models.losses import MelLoss as JaxMelLoss
+    from hilcodec_tpu.ops.rvq import ResidualVQ as JaxResidualVQ
+    from hilcodec_tpu.train.balancer import Balancer as JaxBalancer
+    from hilcodec_tpu.train.optim import make_optimizer as jax_optimizer
+    from hilcodec_tpu.train.schedulers import \
+        CosineAnnealingWarmup as JaxCosine
+    from hilcodec_tpu.train.step import Trainer as JaxTrainer
+    kw = ENCODEC_OPT
+    opt_g, lr_g = jax_optimizer("AdamP", kw)
+    opt_d, lr_d = jax_optimizer("AdamP", kw)
+    sched = JaxCosine(warmup_iterations=10, T_max=100, eta_min=1e-6)
+    return JaxTrainer(
+        model=JaxCodecModel(JaxEncodec(**ENCODEC),
+                            JaxResidualVQ(**ENCODEC_VQ)),
+        disc=JaxDiscriminators(mstftd_kwargs=dict(ENCODEC_MSTFTD)),
+        mel_loss=JaxMelLoss(24000, n_mels_max=16),
+        balancer=JaxBalancer(weights=ENCODEC_WEIGHTS, weight_others=0.01,
+                             ema_decay=0.99),
+        optim_g=opt_g, optim_d=opt_d, sched_g=sched, sched_d=sched,
+        lr_g=lr_g, lr_d=lr_d)
+
+
+def port_tiny_encodec_trainer() -> Trainer:
+    """The port's counterpart of jax_tiny_encodec_trainer()."""
+    opt_g, lr_g = make_optimizer("AdamP", ENCODEC_OPT)
+    opt_d, lr_d = make_optimizer("AdamP", ENCODEC_OPT)
+    sched = CosineAnnealingWarmup(warmup_iterations=10, T_max=100,
+                                  eta_min=1e-6)
+    return Trainer(
+        model=CodecModel(EncodecModel(**ENCODEC), ResidualVQ(**ENCODEC_VQ),
+                         CPU),
+        disc=Discriminators(mstftd_kwargs=dict(ENCODEC_MSTFTD)),
+        mel_loss=MelLoss(24000, n_mels_max=16),
+        balancer=Balancer(weights=ENCODEC_WEIGHTS, weight_others=0.01,
+                          ema_decay=0.99),
+        optim_g=opt_g, optim_d=opt_d, sched_g=sched, sched_d=sched,
+        lr_g=lr_g, lr_d=lr_d)
+
+
+def two_steps(jtr, ttr):
     """Two steps of both trainers from one state and batch; the JAX side
     jitted once (compute_grads and train_step in one program)."""
-    jtr, ttr = tiny_trainer(), port_tiny_trainer()
     flat, js0 = seeded_state_flat(jtr)
     ts0 = P.tree_from_flat(flat, ttr.init_state(torch.Generator()))
     hop = jtr.model.hop_length
@@ -154,6 +211,16 @@ def run():
                       js_next=js_next, ts_next=ts_next, jm=jm, tm=tm)
         js, ts = js_next, ts_next
     return out
+
+
+@pytest.fixture(scope="module")
+def run():
+    return two_steps(tiny_trainer(), port_tiny_trainer())
+
+
+@pytest.fixture(scope="module")
+def run_encodec():
+    return two_steps(jax_tiny_encodec_trainer(), port_tiny_encodec_trainer())
 
 
 def _check_losses(r):
@@ -292,3 +359,20 @@ def test_disc_update_ratio_skips_d(run):
     assert any(not torch.equal(a, b) for a, b in zip(
         P.flatten(s1.params_d).values(), P.flatten(s2.params_d).values()))
     assert np.isfinite(float(m2["loss/d"]))
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_encodec_compute_grads_matches_jax(run_encodec, step):
+    """The EnCodec trainer (LSTM gradients included) at the bars above."""
+    r = run_encodec[step]
+    assert r["draws"].n in (1, 2, 3, 4)
+    _check_losses(r)
+    _check_grads(r)
+    _check_vq(r)
+    _check_gates(r, run_encodec["ttr"])
+    assert "encoder/lstm/layers/1/w_hh" in tflat(r["taux"]["g_grads"])
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_encodec_train_step_matches_jax(run_encodec, step):
+    _check_deltas(run_encodec[step])
