@@ -16,7 +16,9 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      to 1000; ragged K and K below the cluster size at C = 64; duplicate
      codewords in two CTAs' slices, first index kept; two more launches
      bitwise equal; timed at n = 1, 2, 4, 8 for the per-stage cost and at
-     n_q = 32, K2's shape, at M = 16, 128 and 1800),
+     n_q = 32, K2's shape, at M = 16, 128 and 1800; Avocodo's 12-stage
+     stack at every depth 1-12 and M = 16, 128, 900 and 1800, timed at
+     n = 12 at each),
      and the decoder and encoder frame
      kernels on the flagship at 1, 3, 7, 16, 64 and 128 streams over 3
      frames, output and every cache, each launched twice more on the same
@@ -40,8 +42,8 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      the same tokens); the launch counts of this run of the frame kernels
      and the RVQ cascade must be one per frame;
   6. bench: `python -m hilcodec_tpu_torch.bench S --seconds 1` run
-     in-process at S = 16, 64 and 128 streams, plain and --megakernel in
-     turns (plain, kernel, kernel, plain), each JSON line logged;
+     in-process at S = 16, 64 and 128 streams, plain and --megakernel, one
+     turn each, each JSON line logged;
   7. training: (a) the flagship GAN trainer (build_trainer on
      configs/hilcodec_speech.yaml, seeded weights, codebooks k-means-
      initialized on a seeded batch) at batch 24 x 24000 samples of seeded
@@ -85,7 +87,24 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      quantizers, K1's shape) at 16 and 128 streams; the trainer at batch
      24 x 24000 (3 warm-up and 10 timed steps, as 7(a)); the RVQ kernel's
      training tokens at M = 1800, n = 32; one step on the card against
-     the CPU step at batch 2 (as 7(b)).
+     the CPU step at batch 2 (as 7(b));
+ 10. Avocodo (configs/avocodo_music.yaml at full width: encoder 64 /
+     decoder 96, RVQ 12 x 1024 x 128, CoMBD + SBD; seeded weights, N(0, 1)
+     codebooks, folded): a 16-slot engine behind TCP (8 clients x 75
+     frames against their solo streams, one RVQ launch a tick); its serve
+     CLI against an engine on the same weights; ticks at 16 and 128 slots
+     with the profiler; the bench with --model avocodo at 16 and 128
+     streams; the Avocodo trainer at batch 12 x 24000 (as 7(a)); the RVQ
+     kernel's training tokens at M = 900 for n = 2, 4, 8, 12; one step on
+     the card against the CPU step at batch 2 (as 7(b));
+     configs/avocodo_synth_hiltrainer.yaml for 3 steps at batch 24; the
+     train CLI for one epoch of configs/avocodo_synth.yaml, then export,
+     infer -f 1 and eval in model mode on its checkpoint;
+ 11. the quantizer routing on configs/hilcodec_shapegain_synth.yaml
+     (32 / 48 channels): shape-gain training at batch 24 (3 warm-up, 5
+     timed steps; the shape / gain state moved, codes replaced, no RVQ
+     launch); `vq: ''` for 2 steps; one shape-gain step on the card
+     against the CPU step at batch 2, with its argmax flips.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -108,6 +127,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "hilcodec_speech.yaml")
 ENCODEC_CONFIG = os.path.join(ROOT, "configs", "encodec_24khz.yaml")
 ENCODEC_BENCH_STREAMS = (16, 128)
+AVOCODO_CONFIG = os.path.join(ROOT, "configs", "avocodo_music.yaml")
+AVOCODO_HILTRAINER = os.path.join(ROOT, "configs",
+                                  "avocodo_synth_hiltrainer.yaml")
+SHAPEGAIN_CONFIG = os.path.join(ROOT, "configs",
+                                "hilcodec_shapegain_synth.yaml")
+# the RVQ kernel on Avocodo's 12-stage stack: serving at 16 and 128 slots,
+# training at its batch (12 x 75 = 900 rows) and the `trainer: hilcodec`
+# ablation's (24 x 75 = 1800)
+RVQ12_ROWS = (16, 128, 900, 1800)
 # the EnCodec LSTM (width 512, 2 layers) on cuDNN against a float64 CPU
 # run of the same cell over 75 steps: f32 reads ~3e-7 on an H100, TF32
 # (10 mantissa bits) ~7e-5, which phase_lstm requires to fail this bar
@@ -293,6 +321,7 @@ def phase_kernels(dev):
     gen = torch.Generator().manual_seed(SEED + 1)
     books8 = torch.randn((8, 1024, 128), generator=gen).to(dev)
     books32 = torch.randn((32, 1024, 128), generator=gen).to(dev)
+    books12 = torch.randn((12, 1024, 128), generator=gen).to(dev)
     # ragged K, and K < G (CTAs with empty slices), at C = 64
     books_k1000 = torch.randn((3, 1000, 64), generator=gen).to(dev)
     books_k16 = torch.randn((3, 16, 64), generator=gen).to(dev)
@@ -307,12 +336,15 @@ def phase_kernels(dev):
     # ... and the training path's dropout depths below 32 (rings 1-4)
     cases += [(books32, M, n) for M in (SERVE_SLOTS, 1800)
               for n in (1, 2, 3, 13)]
+    # Avocodo's 12-stage stack at every depth 1-12 (its dropout draws 2,
+    # 4, 8, 12; serving and the bench run 12 and 8) and its rows
+    cases += [(books12, M, n) for M in RVQ12_ROWS for n in range(1, 13)]
     cases += [(b, M, 3) for b in (books_k1000, books_k16)
               for M in (7, 128, 1000)]
     cases += [(dup, M, 2) for M in (16, 64)]
 
     for M, n in ((SERVE_SLOTS, 8), (128, 8), (1000, 8), (SERVE_SLOTS, 32),
-                 (128, 32), (1800, 32)):
+                 (128, 32), (1800, 32)) + tuple((M, 12) for M in RVQ12_ROWS):
         log(f"[kernel] rvq_cascade plan M={M} n={n} K=1024 C=128: "
             + plan_line(M, 1024, 128, n))
 
@@ -373,7 +405,8 @@ def phase_kernels(dev):
 
     timings = {}
     for books, n, rows in ((books8, 8, (SERVE_SLOTS, 128)),
-                           (books32, 32, (SERVE_SLOTS, 128, 1800))):
+                           (books32, 32, (SERVE_SLOTS, 128, 1800)),
+                           (books12, 12, RVQ12_ROWS)):
         for M in rows:
             x = torch.randn((1, M, 128), generator=gen).to(dev)
             ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
@@ -661,15 +694,15 @@ def build_small(channels):
     return model, params
 
 
-def build_flagship(device):
-    """Flagship model, seeded folded params (zero-init scales set nonzero)
-    and N(0, 1) codebooks."""
+def build_flagship(device, config=CONFIG):
+    """The model of `config` (the flagship's by default), seeded folded
+    params (zero-init scales set nonzero) and N(0, 1) codebooks."""
     import torch
     from hilcodec_tpu_torch.models.registry import build_codec_model
     from hilcodec_tpu_torch.utils import params as P
     from hilcodec_tpu_torch.utils.hparams import load_config
 
-    hps = load_config(CONFIG)
+    hps = load_config(config)
     model = build_codec_model(hps.model, hps.model_kwargs.to_dict(),
                               device=device)
     gen = torch.Generator().manual_seed(SEED)
@@ -940,11 +973,11 @@ def phase_frame_path(model, params, vq_state):
 
 def phase_bench():
     """The bench entry at 16, 64 and 128 streams and 1 s of audio, plain and
-    with the frame kernels in turns, in this process."""
+    with the frame kernels, one turn each, in this process."""
     from hilcodec_tpu_torch import bench
     for streams in BENCH_STREAMS:
         base = [str(streams), "--seconds", "1"]
-        for extra in ([], ["--megakernel"], ["--megakernel"], []):
+        for extra in ([], ["--megakernel"]):
             log(f"[bench] python -m hilcodec_tpu_torch.bench "
                 f"{' '.join(base + extra)}: "
                 f"{json.dumps(bench.run(base + extra))}")
@@ -956,7 +989,7 @@ TRAIN_BATCH = 24              # the flagship config's batch
 TRAIN_SEGMENT = 24000         # its segment (1 s at 24 kHz)
 TRAIN_WARMUP = 3
 TRAIN_TIMED = 10
-TRAIN_PROFILED = 3
+TRAIN_PROFILED = 2            # steps in the profiled window
 PARITY_BATCH = 2
 # card against the port's CPU step (the bars of tests/test_train_parity.py)
 LOSS_RTOL = 1e-4
@@ -996,8 +1029,8 @@ def speech_batch(rng, batch, length, sr=24000):
 
 def train_setup(device, batch, seed, config=CONFIG):
     """The trainer of `config` (the flagship's by default) on `device` and
-    a seeded state whose codebooks are k-means-initialized on a seeded
-    batch (not one later stepped on)."""
+    a seeded state whose codebooks (where the quantizer takes k-means) are
+    k-means-initialized on a seeded batch (not one later stepped on)."""
     import torch
     from hilcodec_tpu_torch.train.loop import build_trainer
     from hilcodec_tpu_torch.train.step import to_device
@@ -1006,8 +1039,10 @@ def train_setup(device, batch, seed, config=CONFIG):
     hps = load_config(config)
     trainer = build_trainer(hps, device)
     state = trainer.init_state(torch.Generator().manual_seed(seed))
-    wav = speech_batch(np.random.default_rng(seed), batch, TRAIN_SEGMENT)
     vq = trainer.model.vq
+    if not vq.kmeans_init:          # shape-gain and `vq: ''` have none
+        return hps, trainer, state
+    wav = speech_batch(np.random.default_rng(seed), batch, TRAIN_SEGMENT)
     with torch.no_grad():
         z = trainer.model.codec.encoder.apply(state.params_g["encoder"],
                                               to_device(wav, trainer.device))
@@ -1033,11 +1068,13 @@ def train_bound(trainer, state, wav_t, draws):
     return flops, flops / PEAK_F32_FLOPS * 1e3, by_op
 
 
-def phase_train_full(card, config=CONFIG, tag="train"):
-    """(a) The trainer of `config` (the flagship's by default) at batch 24
-    x 24000 on the card: k-means init, warm-up steps, timed steps (CUDA
-    events per step), throughput, peak memory, a torch.profiler window
-    and the FLOP bound."""
+def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
+                     timed=TRAIN_TIMED, rvq_steps=True):
+    """(a) The trainer of `config` (the flagship's by default) at `batch`
+    (24) x 24000 on the card: k-means init, warm-up steps, `timed` timed
+    steps (CUDA events per step), throughput, peak memory, a
+    torch.profiler window and the FLOP bound. With rvq_steps the RVQ
+    kernel must launch once a step, else never (shape-gain, no VQ)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1048,15 +1085,17 @@ def phase_train_full(card, config=CONFIG, tag="train"):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 20, config)
+    _, trainer, state = train_setup("cuda", batch, SEED + 20, config)
     torch.cuda.synchronize()
-    log(f"[{tag}] trainer of {os.path.relpath(config, ROOT)} on the "
-        f"card, batch {TRAIN_BATCH} x {TRAIN_SEGMENT} samples; built and "
-        f"k-means-initialized in {time.perf_counter() - t0:.2f} s")
+    log(f"[{tag}] {type(trainer).__name__} of "
+        f"{os.path.relpath(config, ROOT)} on the card, batch {batch} x "
+        f"{TRAIN_SEGMENT} samples; built and initialized in "
+        f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED + 21)
-    batches = [to_device(speech_batch(rng, TRAIN_BATCH, TRAIN_SEGMENT),
+    batches = [to_device(speech_batch(rng, batch, TRAIN_SEGMENT),
                          trainer.device)
-               for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+               for _ in range(TRAIN_WARMUP + timed)]
+    first_vq = {k: v.clone() for k, v in state.vq_state.items()}
     first_g = {k: v.clone() for k, v in flatten(state.params_g).items()}
     first_d = {k: v.clone() for k, v in flatten(state.params_d).items()}
     it = 0
@@ -1076,7 +1115,7 @@ def phase_train_full(card, config=CONFIG, tag="train"):
         f"{time.perf_counter() - t0:.2f} s")
 
     events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(TRAIN_TIMED + 1)]
+              for _ in range(timed + 1)]
     metrics, depths = [], []
     rvq_kernel.reset_launches()
     t0 = time.perf_counter()
@@ -1090,12 +1129,12 @@ def phase_train_full(card, config=CONFIG, tag="train"):
     wall = time.perf_counter() - t0
     launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
     step_ms = [events[i].elapsed_time(events[i + 1])
-               for i in range(TRAIN_TIMED)]
+               for i in range(timed)]
     p50, p90 = np.percentile(step_ms, 50), np.percentile(step_ms, 90)
-    audio_s = TRAIN_TIMED * TRAIN_BATCH * TRAIN_SEGMENT / 24000.0
+    audio_s = timed * batch * TRAIN_SEGMENT / 24000.0
     peak = torch.cuda.max_memory_allocated()
     host = [metrics_to_host(m) for m in metrics]
-    log(f"[{tag}] {TRAIN_TIMED} timed steps: step ms p50 {p50:.1f}, p90 "
+    log(f"[{tag}] {timed} timed steps: step ms p50 {p50:.1f}, p90 "
         f"{p90:.1f} (CUDA events; all "
         f"{', '.join(f'{x:.1f}' for x in step_ms)}); wall {wall:.3f} s, "
         f"{audio_s / wall:.1f} audio s trained per wall s; peak memory "
@@ -1107,9 +1146,16 @@ def phase_train_full(card, config=CONFIG, tag="train"):
            if k != "num_replaces" and not np.all(np.isfinite(v))]
     if bad or any(h["finite"] != 1.0 for h in host):
         raise AssertionError(f"non-finite training metrics: {bad}")
-    if launches != TRAIN_TIMED:
+    if launches != (timed if rvq_steps else 0):
         raise AssertionError(f"rvq_cascade launched {launches} times in "
-                             f"{TRAIN_TIMED} steps")
+                             f"{timed} steps")
+    replaces = sum(np.asarray(h["num_replaces"]) for h in host)
+    moved = [k for k, v in first_vq.items()
+             if v.dtype != torch.bool and not torch.equal(
+                 v, state.vq_state[k])]
+    log(f"[{tag}] quantizer state leaves that moved: {moved}; codes "
+        f"replaced by stage over the timed steps: "
+        f"{np.asarray(replaces).tolist()}")
     last_g, last_d = flatten(state.params_g), flatten(state.params_d)
     still_g = [k for k, v in first_g.items() if torch.equal(v, last_g[k])]
     still_d = [k for k, v in first_d.items() if torch.equal(v, last_d[k])]
@@ -1121,6 +1167,7 @@ def phase_train_full(card, config=CONFIG, tag="train"):
         raise AssertionError("the parameters did not move")
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for b in batches[:TRAIN_PROFILED]:
@@ -1131,7 +1178,8 @@ def phase_train_full(card, config=CONFIG, tag="train"):
     n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
     log(f"[{tag}] torch.profiler over {TRAIN_PROFILED} steps: {dev_ms:.1f} "
         f"ms of device kernels and {n_kernels:.0f} kernels a step; device "
-        f"busy {dev_ms / p50 * 100:.0f}% of the p50 step")
+        f"busy {dev_ms / p50 * 100:.0f}% of the p50 step (the window and "
+        f"its trace took {time.perf_counter() - t0:.1f} s)")
     for e in sorted(dev, key=lambda e: -e.device_time_total)[:10]:
         log(f"[{tag}]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f} ms "
             f"x{e.count / TRAIN_PROFILED:.0f}/step  {e.key[:90]}")
@@ -1149,7 +1197,8 @@ def phase_train_full(card, config=CONFIG, tag="train"):
     return trainer, state, dict(p50=p50, p90=p90, launches=launches,
                                 bound_ms=bound_ms, peak=peak,
                                 audio_s=audio_s / wall,
-                                busy=dev_ms / p50)
+                                busy=dev_ms / p50, vq_moved=moved,
+                                replaces=np.asarray(replaces))
 
 
 def _rel(a, b):
@@ -1166,6 +1215,7 @@ def phase_train_parity(config=CONFIG, tag="train-parity"):
     port on the CPU: full width, batch 2, the same state (codebooks
     k-means-initialized on the CPU on another batch), batch and draws."""
     import torch
+    from hilcodec_tpu_torch.ops.shape_gain import ShapeGainVQBridge
     from hilcodec_tpu_torch.train.loop import build_trainer, step_generator
     from hilcodec_tpu_torch.train.step import to_device
     from hilcodec_tpu_torch.utils.params import flatten, tree_map, unflatten
@@ -1186,8 +1236,7 @@ def phase_train_parity(config=CONFIG, tag="train-parity"):
     card_tr = build_trainer(hps, "cuda")
     card_state = tree_map(lambda x: x.to("cuda"), cpu_state)
     draws = cpu_tr.sample_draws(step_generator(SEED, 0), wav.shape)
-    card_draws = dataclasses.replace(draws,
-                                     expire_idx=draws.expire_idx.cuda())
+    card_draws = draws.to("cuda")
     aux_c = cpu_tr.compute_grads(cpu_state, torch.from_numpy(wav), draws)
     new_c, _ = cpu_tr.apply_grads(cpu_state, aux_c)
     wav_g = to_device(wav, card_tr.device)
@@ -1195,25 +1244,28 @@ def phase_train_parity(config=CONFIG, tag="train-parity"):
     new_g, _ = card_tr.apply_grads(card_state, aux_g)
     again = card_tr.compute_grads(card_state, wav_g, card_draws)
     torch.cuda.synchronize()
-    log(f"[{tag}] one step at batch {PARITY_BATCH} x "
-        f"{TRAIN_SEGMENT} samples, dropout depth "
+    log(f"[{tag}] {type(cpu_tr).__name__}: one step at batch "
+        f"{PARITY_BATCH} x {TRAIN_SEGMENT} samples, dropout depth "
         f"{draws.n}, on the card and on the CPU (in "
         f"{time.perf_counter() - t0:.1f} s with set-up)")
+    if isinstance(cpu_tr.model.vq, ShapeGainVQBridge):
+        shape_gain_flips(cpu_tr, cpu_state, card_state, wav, tag)
 
     worst = {}
     for k, v in aux_c["losses"].items():
         worst[f"loss/{k}"] = _rel(aux_g["losses"][k], v)
     for k in ("loss_vq", "d_loss"):
-        worst[k] = _rel(aux_g[k], aux_c[k])
-    for k in ("ema_norms", "ema_fix"):
+        worst[k] = _rel(aux_g[k], aux_c[k]) if float(aux_c[k]) else abs(
+            float(aux_g[k]))
+    for k in ("ema_norms", "ema_fix") if "new_bal" in aux_c else ():
         worst[f"balancer/{k}"] = float(
             ((aux_g["new_bal"][k].cpu() - aux_c["new_bal"][k]).abs()
              / aux_c["new_bal"][k].abs()).max())
-    for k in ("embed", "ema_embed", "ema_num"):
-        worst[f"vq/{k}"] = _rel_l2(aux_g["new_vq_state"][k],
-                                   aux_c["new_vq_state"][k])
-    log(f"[{tag}] losses, balancer EMA (max relative error) and VQ "
-        "state (relative L2); bars 1e-4: " + ", ".join(
+    for k, v in aux_c["new_vq_state"].items():
+        if v.dtype != torch.bool:
+            worst[f"vq/{k}"] = _rel_l2(aux_g["new_vq_state"][k], v)
+    log(f"[{tag}] losses, balancer EMA (max relative error) and "
+        "quantizer state (relative L2); bars 1e-4: " + ", ".join(
             f"{k} {v:.2g}" for k, v in worst.items()))
     replaces = (aux_g["num_replaces"].cpu().tolist(),
                 aux_c["num_replaces"].tolist())
@@ -1300,14 +1352,40 @@ def phase_train_parity(config=CONFIG, tag="train-parity"):
         f"need not be bitwise repeatable; reported, not asserted)")
 
 
+def shape_gain_flips(cpu_tr, cpu_state, card_state, wav, tag):
+    """Shape and gain argmax flips between the card and the CPU: each
+    stage's codebook quantizes the CPU's residual on both devices (the
+    card's encoder latents would differ by rounding); reported, not
+    failed."""
+    import torch
+    rvq = cpu_tr.model.vq.rvq
+    enc = cpu_tr.model.codec.encoder
+    with torch.no_grad():
+        z = enc.apply(cpu_state.params_g["encoder"], torch.from_numpy(wav))
+        residual = z.transpose(1, 2).reshape(-1, rvq.dim)
+        flips = []
+        for i in range(rvq.num_quantizers):
+            st_c = {k: v[i] for k, v in cpu_state.vq_state.items()}
+            st_g = {k: v[i] for k, v in card_state.vq_state.items()}
+            q, si, gi, _ = rvq.codebook.quantize(residual, st_c)
+            _, si_g, gi_g, _ = rvq.codebook.quantize(residual.cuda(), st_g)
+            flips.append((int((si != si_g.cpu()).sum()),
+                          int((gi != gi_g.cpu()).sum())))
+            residual = residual - q
+    log(f"[{tag}] shape / gain argmax flips card vs CPU on the CPU's "
+        f"residuals, by stage ({residual.shape[0]} rows): {flips}")
+
+
 def phase_train_tokens(trainer, state, depths=(2, 4, 8),
-                       tag="train-tokens"):
+                       tag="train-tokens", batch=TRAIN_BATCH, timed=None):
     """(c) The training forward's stage indices (the RVQ kernel) against
-    the plain cascade at M = 1800 rows, at each dropout depth given."""
+    the plain cascade at M = batch x 75 rows (1800 at the flagship's
+    batch), at each dropout depth given; the kernel timed at the depths
+    `timed` (all when None)."""
     import torch
     from hilcodec_tpu_torch.ops import rvq, rvq_kernel
 
-    wav = speech_batch(np.random.default_rng(SEED + 40), TRAIN_BATCH,
+    wav = speech_batch(np.random.default_rng(SEED + 40), batch,
                        TRAIN_SEGMENT)
     books = state.vq_state["embed"]
     with torch.no_grad():
@@ -1321,24 +1399,29 @@ def phase_train_tokens(trainer, state, depths=(2, 4, 8),
             rep = rvq.token_parity_report(got, ref, x, books)
             plan, _ = rvq_kernel.device_plan(x.device, M, books.shape[1],
                                              books.shape[2], n)
-            ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
-            bound_ms, bound_by = rvq_bound_ms(M, n, books.shape[1],
-                                              books.shape[2])
-            log(f"[{tag}] M={M} n={n} (trained codebooks): "
-                f"mismatches {rep['mismatches']} (ties {rep['ties']}, not "
-                f"ties {rep['not_ties']}); plan G={plan.cluster} "
-                f"TM={plan.rows}, {plan.tiles} clusters; kernel "
-                f"{ms * 1e3:.2f} us (CUDA graph), bound {bound_ms * 1e3:.2f}"
-                f" us ({bound_by})")
+            line = (f"[{tag}] M={M} n={n} (trained codebooks): "
+                    f"mismatches {rep['mismatches']} (ties {rep['ties']}, "
+                    f"not ties {rep['not_ties']}); plan G={plan.cluster} "
+                    f"TM={plan.rows}, {plan.tiles} clusters")
+            if timed is None or n in timed:
+                ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, n))
+                bound_ms, bound_by = rvq_bound_ms(M, n, books.shape[1],
+                                                  books.shape[2])
+                line += (f"; kernel {ms * 1e3:.2f} us (CUDA graph), bound "
+                         f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            log(line)
             if not rep["ok"]:
                 raise AssertionError(f"training tokens differ beyond ties "
                                      f"at n={n}: {rep}")
 
 
-def phase_train_cli(tmp):
-    """(d) `python -m hilcodec_tpu_torch.train` on a seeded corpus written
-    with the port's write_wav: one epoch writes 00001.ckpt.npz, a second
-    run resumes from it and writes 00002.ckpt.npz."""
+def phase_train_cli(tmp, config=os.path.join(ROOT, "configs",
+                                             "hilcodec_speech_synth.yaml"),
+                    name="smoke", runs=2):
+    """(d) `python -m hilcodec_tpu_torch.train` of `config` on a seeded
+    corpus written with the port's write_wav: one epoch writes
+    00001.ckpt.npz and, with runs=2, a second run resumes from it and
+    writes 00002.ckpt.npz; under {tmp}/logs/{name}."""
     import yaml
     from hilcodec_tpu_torch.utils.wavio import write_wav
 
@@ -1352,8 +1435,7 @@ def phase_train_cli(tmp):
                   speech_batch(rng, 1, 24000)[0, 0], 24000)
     with open(os.path.join(tmp, "valid.txt"), "w") as f:
         f.write("v0.wav\nv1.wav\n")
-    with open(os.path.join(ROOT, "configs",
-                           "hilcodec_speech_synth.yaml")) as f:
+    with open(config) as f:
         cfg = yaml.safe_load(f)
     data = cfg["data"]
     data["classes"]["clean"]["directories_to_include"] = [
@@ -1369,15 +1451,16 @@ def phase_train_cli(tmp):
         yaml.safe_dump(cfg, f)
     base = os.path.join(tmp, "logs")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    for i, extra in enumerate((["-c", path], ["-p", "train.max_epochs=2"])):
+    for i, extra in enumerate((["-c", path], ["-p", "train.max_epochs=2"])
+                              [:runs]):
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, "-m", "hilcodec_tpu_torch.train", "-n", "smoke",
+            [sys.executable, "-m", "hilcodec_tpu_torch.train", "-n", name,
              "-b", base] + extra, cwd=ROOT, env=env, capture_output=True,
             text=True, timeout=600)
         for ln in (out.stdout + out.stderr).strip().splitlines()[-6:]:
             log(f"[train-cli]   {ln[:160]}")
-        ckpt = os.path.join(base, "smoke", f"{i + 1:05d}.ckpt.npz")
+        ckpt = os.path.join(base, name, f"{i + 1:05d}.ckpt.npz")
         if out.returncode != 0 or not os.path.exists(ckpt):
             raise AssertionError(f"train CLI run {i + 1} failed "
                                  f"(rc {out.returncode}) or wrote no {ckpt}")
@@ -1830,16 +1913,21 @@ def phase_lstm(dev):
                              f"modes apart")
 
 
-def phase_encodec_serve_cli(model, params, vq_state, sr, card):
-    """`python -m hilcodec_tpu_torch.serve -c configs/encodec_24khz.yaml`
-    (4 slots, the seeded weights build_encodec makes too) in a subprocess,
-    one 75-frame client, against a 4-slot engine in this process on the
-    same weights: the same tokens, PCM within PCM_TOL_LSB."""
+def phase_serve_cli(config, card, tag):
+    """`python -m hilcodec_tpu_torch.serve -c CONFIG` (4 slots, its seeded
+    weights) in a subprocess, one 75-frame client, against a 4-slot engine
+    in this process on the weights the CLI builds (`serving_weights`): the
+    same tokens, PCM within PCM_TOL_LSB."""
     from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
+    from hilcodec_tpu_torch.serve.__main__ import serving_weights
+    from hilcodec_tpu_torch.utils.hparams import load_config
 
+    hps = load_config(config)
+    model, params, vq_state = serving_weights(hps, device="cuda")
+    sr = hps.data.sampling_rate
     hop, n_q = model.hop_length, model.vq.num_quantizers
     audio = client_audio(0, hop)
-    proc, port, dt = serve_subprocess(ENCODEC_CONFIG)
+    proc, port, dt = serve_subprocess(config)
     try:
         tok_cli, pcm_cli = asyncio.run(run_client(port, audio, hop, n_q))
     finally:
@@ -1863,15 +1951,15 @@ def phase_encodec_serve_cli(model, params, vq_state, sr, card):
 
     tok, pcm = asyncio.run(served())
     lsb = int(np.abs(pcm.astype(np.int64) - pcm_cli).max())
-    log(f"[encodec-serve-cli] serve -c configs/encodec_24khz.yaml serving "
+    log(f"[{tag}] serve -c {os.path.relpath(config, ROOT)} serving "
         f"{dt:.1f} s after start ({card}); one {CLIENT_FRAMES}-frame client "
         f"against an engine in this process: tokens "
         f"{'identical' if np.array_equal(tok, tok_cli) else 'DIFFER'}, PCM "
         f"max |diff| {lsb} int16 steps")
     if tok_cli.shape != (n_q, CLIENT_FRAMES) or not np.array_equal(
             tok, tok_cli) or lsb > PCM_TOL_LSB:
-        raise AssertionError("the EnCodec serve CLI differs from the "
-                             "engine on the same weights")
+        raise AssertionError(f"the serve CLI of {config} differs from the "
+                             f"engine on the same weights")
 
 
 def phase_encodec(card):
@@ -1896,7 +1984,7 @@ def phase_encodec(card):
         f"tensors, slot axes {model.cache_axes()}")
     serve_launches = phase_serve(model, params, vq_state, sr,
                                  tag="encodec-serve")
-    phase_encodec_serve_cli(model, params, vq_state, sr, card)
+    phase_serve_cli(ENCODEC_CONFIG, card, "encodec-serve-cli")
     ticks = phase_timings(model, params, vq_state, card,
                           tag="encodec-timing")
     del model, params, vq_state
@@ -1919,12 +2007,252 @@ def phase_encodec(card):
     # every dropout depth the path draws: the ring of the kernel's plan
     # is min(4, n) at M = 1800
     phase_train_tokens(trainer, state, depths=range(1, 33),
-                       tag="encodec-train-tokens")
+                       tag="encodec-train-tokens", timed=(1, 2, 3, 13, 32))
     del trainer, state
     torch.cuda.empty_cache()
     phase_train_parity(ENCODEC_CONFIG, tag="encodec-train-parity")
     return dict(serve_launches=serve_launches, bench_launches=bench_launches,
                 ticks=ticks, train=train)
+
+
+# --------------------------------------------------------------- phase 10
+
+AVOCODO_BATCH = 12            # configs/avocodo_music.yaml's batch
+AVOCODO_BENCH_STREAMS = (16, 128)
+HILTRAINER_STEPS = 3
+
+
+def phase_avocodo(card):
+    """configs/avocodo_music.yaml on the card (encoder 64 / decoder 96, RVQ
+    12 x 1024 x 128, CoMBD + SBD): a 16-slot engine behind TCP (8 clients
+    x 75 frames, each against its solo stream with the plain quantizer,
+    one RVQ launch a tick); the serve CLI; ticks at 16 and 128 slots with
+    the profiler; the bench with --model avocodo at 16 and 128 streams;
+    the Avocodo trainer at batch 12 x 24000 (3 warm-up, 10 timed steps);
+    the RVQ kernel's training tokens at M = 900 for n = 2, 4, 8, 12; one
+    step on the card against the CPU step at batch 2; 3 steps of
+    configs/avocodo_synth_hiltrainer.yaml at batch 24; the tools on a
+    one-epoch checkpoint. Returns the RVQ kernel's launches on each path
+    and the numbers of the serving and training paths."""
+    import tempfile
+    import torch
+    from hilcodec_tpu_torch import bench
+    from hilcodec_tpu_torch.ops import rvq_kernel
+
+    t0 = time.perf_counter()
+
+    def done(part):
+        log(f"[time] phase 10 {part} done at "
+            f"{time.perf_counter() - t0:.1f} s into the phase")
+
+    model, params, vq_state, sr = build_flagship("cuda", AVOCODO_CONFIG)
+    log(f"[avocodo] configs/avocodo_music.yaml: hop {model.hop_length}, "
+        f"RVQ {model.vq.num_quantizers} x {model.vq.codebook_size} x "
+        f"{model.vq.dim}, caches {[len(c) for c in model.init_cache(1)]} "
+        f"tensors, slot axes {model.cache_axes()}")
+    serve_launches = phase_serve(model, params, vq_state, sr,
+                                 tag="avocodo-serve")
+    phase_serve_cli(AVOCODO_CONFIG, card, "avocodo-serve-cli")
+    done("serving")
+    ticks = phase_timings(model, params, vq_state, card,
+                          tag="avocodo-timing")
+    del model, params, vq_state
+    done("ticks")
+    rvq_kernel.reset_launches()
+    for streams in AVOCODO_BENCH_STREAMS:
+        argv = [str(streams), "--seconds", "1", "--model", "avocodo"]
+        log(f"[avocodo-bench] python -m hilcodec_tpu_torch.bench "
+            f"{' '.join(argv)}: {json.dumps(bench.run(argv))}")
+    bench_launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    log(f"[avocodo-bench] rvq_cascade launches over both runs "
+        f"{bench_launches} (n = 8)")
+    done("bench")
+    trainer, state, train = phase_train_full(
+        card, AVOCODO_CONFIG, tag="avocodo-train", batch=AVOCODO_BATCH)
+    phase_train_tokens(trainer, state, depths=(2, 4, 8, 12),
+                       tag="avocodo-train-tokens", batch=AVOCODO_BATCH)
+    del trainer, state
+    torch.cuda.empty_cache()
+    done("training")
+    phase_train_parity(AVOCODO_CONFIG, tag="avocodo-train-parity")
+    hil_launches = phase_hiltrainer(card)
+    torch.cuda.empty_cache()
+    done("parity and the hiltrainer ablation")
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_launches = phase_avocodo_tools(tmp, card)
+    return dict(serve_launches=serve_launches, bench_launches=bench_launches,
+                ticks=ticks, train=train, hil_launches=hil_launches,
+                tools_launches=tools_launches)
+
+
+def phase_hiltrainer(card):
+    """configs/avocodo_synth_hiltrainer.yaml (the Avocodo generator under
+    the balancer trainer, MFBD + MSTFTD) for HILTRAINER_STEPS steps at its
+    batch of 24: every loss finite, one RVQ launch a step (M = 1800)."""
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.train.loop import step_generator
+    from hilcodec_tpu_torch.train.step import metrics_to_host, to_device
+
+    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 70,
+                                    AVOCODO_HILTRAINER)
+    rng = np.random.default_rng(SEED + 71)
+    rvq_kernel.reset_launches()
+    walls, host = [], []
+    for i in range(HILTRAINER_STEPS):
+        wav = to_device(speech_batch(rng, TRAIN_BATCH, TRAIN_SEGMENT),
+                        trainer.device)
+        t0 = time.perf_counter()
+        draws = trainer.sample_draws(step_generator(SEED, i), wav.shape)
+        state, m = trainer.train_step(state, wav, draws)
+        host.append(metrics_to_host(m))
+        walls.append(time.perf_counter() - t0)
+    launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    log(f"[avocodo-hiltrainer] {type(trainer).__name__} of "
+        f"configs/avocodo_synth_hiltrainer.yaml, {HILTRAINER_STEPS} steps "
+        f"at batch {TRAIN_BATCH}: wall s {[round(w, 3) for w in walls]} "
+        f"(the first builds cuDNN's plans); rvq_cascade launches {launches} "
+        f"({card})")
+    for k in sorted(k for k in host[0] if k.startswith("loss/")):
+        log(f"[avocodo-hiltrainer]   {k}: "
+            + ", ".join(f"{h[k]:.4g}" for h in host))
+    bad = [(i, k) for i, h in enumerate(host) for k, v in h.items()
+           if k != "num_replaces" and not np.all(np.isfinite(v))]
+    if bad or launches != HILTRAINER_STEPS:
+        raise AssertionError(f"hiltrainer: non-finite {bad}, rvq_cascade "
+                             f"launches {launches}")
+    return launches
+
+
+def phase_avocodo_tools(tmp, card):
+    """The train CLI of configs/avocodo_synth.yaml for one epoch, then on
+    its 00001.ckpt.npz: export (a subprocess), infer -f 1 with --latency
+    and eval in model mode (offline, through the trainer's facade) in this
+    process; the RVQ kernel's launches over infer and eval."""
+    from hilcodec_tpu_torch import eval as tools_eval
+    from hilcodec_tpu_torch import export as tools_export
+    from hilcodec_tpu_torch import infer as tools_infer
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
+
+    phase_train_cli(tmp, os.path.join(ROOT, "configs", "avocodo_synth.yaml"),
+                    name="avo", runs=1)
+    cfg = os.path.join(tmp, "config.yaml")
+    ckpt = os.path.join(tmp, "logs", "avo", "00001.ckpt.npz")
+    deploy = os.path.join(tmp, "deploy", "avo")
+    out, dt = in_process(tools_export.main, ["-c", cfg, "--ckpt", ckpt,
+                                             "-o", deploy])
+    with np.load(deploy + "_deploy.npz") as z:
+        books = z["codebooks"].shape
+        heads = sorted(k for k in z.files if k.startswith("decoder/heads/"))
+    log(f"[avocodo-tools] export --ckpt 00001.ckpt.npz in {dt:.1f} s "
+        f"(in this process; {card}); codebooks {books}, head leaves "
+        f"{heads}")
+    if books != (12, 1024, 128) or "decoder/heads/2/w" not in heads:
+        raise AssertionError("export wrote no Avocodo deploy npz")
+
+    sr = 24000
+    wav = speech_batch(np.random.default_rng(SEED + 80), 1,
+                       TOOLS_SECONDS * sr)[0, 0]
+    inp = os.path.join(tmp, "tools_in.wav")
+    write_wav(inp, wav, sr)
+    rvq_kernel.reset_launches()
+    o = os.path.join(tmp, "infer_avo")
+    text, dt = in_process(tools_infer.main, [
+        "-c", cfg, "-i", inp, "--ckpt", ckpt, "-o", o, "-f", "1",
+        "--latency"])
+    tok = np.load(o + "_quantized.npy")
+    out_wav, out_sr = read_wav(o + "_output.wav")
+    L = TOOLS_SECONDS * sr // 320
+    if tok.dtype != np.int16 or tok.shape != (12, 1, L) or out_sr != sr \
+            or out_wav.shape != (L * 320,) or not np.isfinite(out_wav).all():
+        raise AssertionError(f"infer: tokens {tok.dtype} {tok.shape}, wav "
+                             f"{out_wav.shape}")
+    nums = dict(re.findall(r"(encoder|decoder) RTF:\s+([\d.]+)x", text))
+    lat = re.search(r"p50 ([\d.]+)\s+p90 ([\d.]+)\s+p99 ([\d.]+) ms",
+                    text)
+    log(f"[avocodo-tools] infer -f 1: encoder RTF {nums['encoder']}x, "
+        f"decoder RTF {nums['decoder']}x on {TOOLS_SECONDS} s; per-step "
+        f"latency p50 {lat.group(1)} / p90 {lat.group(2)} / p99 "
+        f"{lat.group(3)} ms against 13.33 ms ({dt:.1f} s with the model "
+        f"load; {card})")
+
+    ref_dir = os.path.join(tmp, "eval_ref")
+    os.makedirs(ref_dir)
+    for i, w in enumerate(speech_batch(np.random.default_rng(SEED + 81),
+                                       EVAL_FILES, sr)):
+        write_wav(os.path.join(ref_dir, f"e{i}.wav"), w[0], sr)
+    text, dt = in_process(tools_eval.main, [
+        "-c", cfg, "--ckpt", ckpt, "-i", ref_dir, "-m", "sisdr,stoi,mcd"])
+    got = dict(re.findall(r"^(\w+): ([-\d.]+) \+/- [\d.na]+ \(95% CI, "
+                          rf"n={EVAL_FILES}\)", text, re.M))
+    if set(got) != {"sisdr", "stoi", "mcd"}:
+        raise AssertionError(f"eval model mode printed {got}")
+    launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    log(f"[avocodo-tools] eval model mode (offline, the trainer's facade) "
+        f"on {EVAL_FILES} files in {dt:.1f} s ({card}); rvq_cascade "
+        f"launches over infer and eval {launches}")
+    if launches == 0:
+        raise AssertionError("the Avocodo tools launched no rvq_cascade")
+    return launches
+
+
+# --------------------------------------------------------------- phase 11
+
+SHAPEGAIN_TIMED = 5
+NOVQ_STEPS = 2
+
+
+def phase_routing(card):
+    """The `vq:` routing on configs/hilcodec_shapegain_synth.yaml (32 / 48
+    channels): shape-gain training at batch 24 (3 warm-up, 5 timed steps;
+    losses finite, the shape / gain EMA state moved, replaces counted, no
+    RVQ launch); the same config with `vq: ''` for NOVQ_STEPS steps (zero
+    VQ loss, no replaces); one shape-gain step on the card against the
+    CPU step at batch 2, its argmax flips reported."""
+    import torch
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.train.loop import build_trainer, step_generator
+    from hilcodec_tpu_torch.train.step import metrics_to_host, to_device
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    trainer, state, res = phase_train_full(
+        card, SHAPEGAIN_CONFIG, tag="shapegain-train",
+        timed=SHAPEGAIN_TIMED, rvq_steps=False)
+    if set(res["vq_moved"]) != {"shape", "shape_num", "gain", "gain_num"} \
+            or int(res["replaces"].sum()) == 0:
+        raise AssertionError(f"shape-gain state moved {res['vq_moved']}, "
+                             f"replaces {res['replaces']}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    hps = load_config(SHAPEGAIN_CONFIG)
+    hps.model_kwargs["vq"] = ""
+    trainer = build_trainer(hps, "cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(SEED + 90))
+    rng = np.random.default_rng(SEED + 91)
+    rvq_kernel.reset_launches()
+    host = []
+    for i in range(NOVQ_STEPS):
+        wav = to_device(speech_batch(rng, TRAIN_BATCH, TRAIN_SEGMENT),
+                        trainer.device)
+        state, m = trainer.train_step(
+            state, wav, trainer.sample_draws(step_generator(SEED, i),
+                                             wav.shape))
+        host.append(metrics_to_host(m))
+    log(f"[novq-train] {type(trainer.model.vq).__name__}, {NOVQ_STEPS} "
+        f"steps at batch {TRAIN_BATCH}: " + "; ".join(
+            ", ".join(f"{k} {v:.4g}" for k, v in h.items()
+                      if k.startswith("loss/")) for h in host)
+        + f"; rvq_cascade launches {rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]}")
+    bad = [(i, k) for i, h in enumerate(host) for k, v in h.items()
+           if k != "num_replaces" and not np.all(np.isfinite(v))]
+    if bad or any(h["loss/vq"] != 0.0 or h["num_replaces"].size
+                  for h in host) or rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]:
+        raise AssertionError(f"vq '': non-finite {bad} or a quantizer ran")
+    del trainer, state
+    torch.cuda.empty_cache()
+    phase_train_parity(SHAPEGAIN_CONFIG, tag="shapegain-train-parity")
+    return res
 
 
 def main() -> int:
@@ -1938,20 +2266,40 @@ def main() -> int:
 
     from hilcodec_tpu_torch.ops import decoder_kernel, encoder_kernel
 
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] phase {phase} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     name, line = phase_device()
+    done(1)
     max_err, timings = phase_kernels(torch.device("cuda", 0))
     model, params, vq_state, sr = build_flagship("cuda")
     frame_err, frame_timings = phase_frame_kernels(model, params)
     for ch in ODD_CHANNELS:
         phase_frame_kernels(*build_small(ch), batches=(3,),
                             tag=f" (channels {ch})")
+    done(2)
     launches = phase_serve(model, params, vq_state, sr)
+    done(3)
     phase_timings(model, params, vq_state, line)
+    done(4)
     frame_launches = phase_frame_path(model, params, vq_state)
+    done(5)
     phase_bench()
+    done(6)
     del model, params, vq_state
     train, tools = phase_train(line)
+    done("7-8")
     encodec = phase_encodec(line)
+    done(9)
+    torch.cuda.empty_cache()
+    avocodo = phase_avocodo(line)
+    done(10)
+    torch.cuda.empty_cache()
+    phase_routing(line)
+    done(11)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -1983,6 +2331,26 @@ def main() -> int:
         "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_m1800": timings[(1800, 32)][0],
         "bound_ms_m1800": timings[(1800, 32)][2], "library_ms": None})
+    # the same kernel on Avocodo's 12-stage stack: its serving path at
+    # M = SERVE_SLOTS, its trainer at M = 900, the `trainer: hilcodec`
+    # ablation at M = 1800, the bench (n = 8) and the tools
+    ms, plain_ms, bound_ms, bound_by = timings[(SERVE_SLOTS, 12)]
+    entry = {
+        "name": f"{rvq_kernel.KERNEL}@n_q=12", "route": "cuda",
+        "source": rvq_kernel.SOURCE,
+        "replaces": "hilcodec_tpu/ops/pallas_rvq.py:148",
+        "launches": avocodo["serve_launches"],
+        "launches_train_path": avocodo["train"]["launches"],
+        "launches_hiltrainer_path": avocodo["hil_launches"],
+        "launches_bench": avocodo["bench_launches"],
+        "launches_tools_path": avocodo["tools_launches"],
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    for M in RVQ12_ROWS[1:]:
+        entry[f"ms_m{M}"] = timings[(M, 12)][0]
+        entry[f"plain_ms_m{M}"] = timings[(M, 12)][1]
+        entry[f"bound_ms_m{M}"] = timings[(M, 12)][2]
+    kernels.append(entry)
     for mod, replaces in ((decoder_kernel,
                            "hilcodec_tpu/ops/pallas_decoder.py:490"),
                           (encoder_kernel,

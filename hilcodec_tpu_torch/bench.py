@@ -3,12 +3,13 @@
 Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
       [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
-      [--model hilcodec|encodec] [--device D]
+      [--model hilcodec|encodec|avocodo] [--device D]
 
 The model is the operating point of bench.py for its family: HILCodec
-defaults with both res_scale set (the flagship), or `--model encodec`,
-EnCodec defaults (SEANet + 2-layer LSTM bottleneck); seeded init, N(0, 1)
-codebooks, 8 quantizers, folded params. It times `encode_stream` then
+defaults with both res_scale set (the flagship), `--model encodec`,
+EnCodec defaults (SEANet + 2-layer LSTM bottleneck), or `--model
+avocodo`, AvocodoModel defaults (streaming its full-rate head); seeded
+init, N(0, 1) codebooks, 8 quantizers, folded params. It times `encode_stream` then
 `decode_stream` (frame kernels
 with --megakernel; the plain frame step by default, as in the JAX
 package), or `encode_decode_stream` with --fused, over S seconds of audio
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from . import resolve_device, set_f32_parity_mode
+from .models.avocodo import AvocodoModel
 from .models.codec import CodecModel
 from .models.encodec import EncodecModel
 from .models.hilcodec import HILCodec
@@ -49,7 +51,7 @@ DISPATCH_BLOCKING = 100
 DISPATCH_PIPELINED = 200
 # bench.py options the port does not have yet
 _NOT_PORTED = ("--mesh", "--dtype", "--depthwise", "--unroll", "--chunks")
-MODELS = ("hilcodec", "encodec")
+MODELS = ("hilcodec", "encodec", "avocodo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +149,12 @@ def build_encodec_bench_model(device: torch.device) -> CodecModel:
     """bench.py's `--model encodec` point: EncodecModel defaults (SEANet
     + 2-layer LSTM bottleneck), 8 quantizers."""
     return CodecModel(EncodecModel(), _bench_vq(), device)
+
+
+def build_avocodo_bench_model(device: torch.device) -> CodecModel:
+    """bench.py's `--model avocodo` point: AvocodoModel defaults (the
+    full-rate head streams), 8 quantizers."""
+    return CodecModel(AvocodoModel(), _bench_vq(), device)
 
 
 def bench_params(model: CodecModel):
@@ -278,8 +286,9 @@ def run(argv: List[str]) -> dict:
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_f32_parity_mode()
-    build = (build_encodec_bench_model if args.model == "encodec"
-             else build_bench_model)
+    build = {"hilcodec": build_bench_model,
+             "encodec": build_encodec_bench_model,
+             "avocodo": build_avocodo_bench_model}[args.model]
     model = build(device)
     params, vq_state = bench_params(model)
     bench = dispatch_bench if args.dispatch else stream_bench

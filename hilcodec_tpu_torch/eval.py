@@ -8,12 +8,14 @@
     python -m hilcodec_tpu_torch.eval -i REF_DIR -d DEG_DIR
 
 Model mode pads each wav to a power-of-two number of hops and runs the
-offline `encode` / `decode` (the RVQ kernel on the card), or with
---stream (and for inputs over 512 hops) `encode_stream` / `decode_stream`.
+offline `encode` / `decode` (the RVQ kernel on the card; Avocodo through
+its full-rate head, as its trainer's facade `AvocodoCodecModel` codes),
+or with --stream (and for inputs over 512 hops)
+`encode_stream` / `decode_stream`. A quantizer without Euclidean
+codebooks (`vq: ''`, shape-gain) has no token coding: the codec
+reconstructs through `forward` (at -n stages), as the JAX eval does.
 Prints each metric's mean and 95% t-interval, and per-file values with
--v. The model families without token coding (avocodo, `vq: ''`) are not
-ported: building one raises NotImplementedError (ROADMAP.md, Queue 1
-item 3).
+-v.
 """
 
 import argparse
@@ -102,9 +104,17 @@ def codec_runner(hps, ckpt=None, n=None, stream=False, device=None):
     if not ckpt:
         print("warning: no --ckpt, scoring randomly initialized weights",
               file=sys.stderr)
+    from .models.avocodo import AvocodoFullRate, AvocodoModel
+    from .models.codec import CodecModel
+    from .ops.rvq import ResidualVQ, RVQDraws
     model, params, vq_state = load_codec(hps, ckpt, device)
     params = model.fold_params(params)
     hop, dev = model.hop_length, model.device
+    forward_only = not isinstance(model.vq, ResidualVQ)
+    # Avocodo codes offline through its full-rate head (the trainer's
+    # facade, AvocodoCodecModel)
+    coder = (CodecModel(AvocodoFullRate(model.codec), model.vq, dev)
+             if isinstance(model.codec, AvocodoModel) else model)
 
     @torch.no_grad()
     def run(wav):
@@ -113,13 +123,16 @@ def codec_runner(hps, ckpt=None, n=None, stream=False, device=None):
         x = torch.zeros((1, 1, Lp), dtype=torch.float32)
         x[0, 0, :L] = torch.from_numpy(np.ascontiguousarray(wav[:L]))
         x = x.to(dev)
-        if stream or Lp // hop > STREAM_ABOVE_HOPS:
+        if forward_only:
+            y = model.forward(params, vq_state, x,
+                              RVQDraws(n) if n else None, training=False)[0]
+        elif stream or Lp // hop > STREAM_ABOVE_HOPS:
             ce, cd = model.init_cache(1)
             tok, _ = model.encode_stream(params, vq_state, x, ce, n=n)
             y, _ = model.decode_stream(params, vq_state, tok, cd)
         else:
-            y = model.decode(params, vq_state,
-                             model.encode(params, vq_state, x, n))
+            y = coder.decode(params, vq_state,
+                             coder.encode(params, vq_state, x, n))
         return y[0, 0, :L].cpu().numpy()
 
     return run

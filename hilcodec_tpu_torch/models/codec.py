@@ -1,9 +1,13 @@
 """Full codec: encoder -> RVQ -> decoder, offline and streaming.
 
 Counterpart of `hilcodec_tpu/models/codec.py`: one codec of any ported
-family (HILCodec, `models/hilcodec.py`; EnCodec, `models/encodec.py`)
-with its residual VQ, built by `models/registry.py`. `forward` is the
-training graph (encoder, training RVQ pass, decoder). The streaming drivers are
+family (HILCodec, `models/hilcodec.py`; EnCodec, `models/encodec.py`;
+Avocodo, `models/avocodo.py`) with its quantizer, built by
+`models/registry.py`. A HILCodec config routes its quantizer by its `vq`
+key (`vq_from_kwargs`): the residual VQ, none (`vq: ''`) or shape-gain
+(`ops/shape_gain.py`); only the residual VQ has the Euclidean codebooks
+token coding and the streaming drivers need. `forward` is the
+training graph (encoder, training quantizer pass, decoder). The streaming drivers are
 Python loops over frames (the JAX package's `lax.scan`), one encoder /
 decoder step per frame, with the caches in the JAX order and the JAX
 output shapes (tokens `[n, B, L]`, wav `[B, 1, L*hop]`). The quantizer is
@@ -13,7 +17,7 @@ version for CPU tensors only. The streaming drivers take
 `encode_stream` / `decode_stream` take `megakernel=True` to run each step
 as one launch of the encoder / decoder frame kernel; it is off by default,
 as in the JAX package, whose automatic choice never selects it, and a
-codec the frame kernels do not cover (EnCodec) raises for it.
+codec the frame kernels do not cover (EnCodec, Avocodo) raises for it.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .. import resolve_device
 from ..ops import decoder_kernel, encoder_kernel
 from ..ops import rvq as Q
 from ..ops import rvq_kernel
+from ..ops.shape_gain import ShapeGainVQBridge
 from .hilcodec import HILCodec, params_to
 
 Params = Dict[str, Any]
@@ -44,14 +49,9 @@ def _encoder_megakernel(encoder) -> encoder_kernel.EncoderMegakernel:
     return encoder_kernel.EncoderMegakernel(encoder)
 
 
-def vq_from_kwargs(model_kwargs: Dict[str, Any]) -> Q.ResidualVQ:
-    """The residual VQ of a YAML `model_kwargs` (its `vq` and `vq_kwargs`;
-    the JAX registry's `_vq_from_kwargs`)."""
-    vq_name = model_kwargs.get("vq", "ResidualVQ")
-    if vq_name != "ResidualVQ":
-        raise NotImplementedError(
-            f"vq {vq_name!r} is not ported yet (see ROADMAP.md)")
-    vq_kwargs = dict(model_kwargs.get("vq_kwargs") or {})
+def residual_vq(vq_kwargs: Dict[str, Any]) -> Q.ResidualVQ:
+    """The Euclidean residual VQ of a YAML `vq_kwargs` (the JAX registry's
+    `_vq_from_kwargs`)."""
     return Q.ResidualVQ(
         dim=vq_kwargs.get("dim", 128),
         codebook_size=vq_kwargs.get("codebook_size", 1024),
@@ -63,6 +63,22 @@ def vq_from_kwargs(model_kwargs: Dict[str, Any]) -> Q.ResidualVQ:
         dropout=vq_kwargs.get("dropout", False),
         dropout_index=tuple(vq_kwargs["dropout_index"])
         if vq_kwargs.get("dropout_index") else None)
+
+
+def vq_from_kwargs(model_kwargs: Dict[str, Any]):
+    """The quantizer a HILCodec `model_kwargs` routes to by its `vq` key
+    (JAX `CodecModel.from_config`): "ResidualVQ" (the default), "" for
+    none (`NoVQ`, the ablation) or "ResidualShapeGainVQ"."""
+    vq_name = model_kwargs.get("vq", "ResidualVQ")
+    vq_kwargs = dict(model_kwargs.get("vq_kwargs") or {})
+    if vq_name == "":
+        return Q.NoVQ()
+    if vq_name == "ResidualShapeGainVQ":
+        return ShapeGainVQBridge.from_kwargs(vq_kwargs)
+    if vq_name != "ResidualVQ":
+        raise ValueError(f"Unknown vq: {vq_name!r} (supported: "
+                         f"'ResidualVQ', 'ResidualShapeGainVQ', '')")
+    return residual_vq(vq_kwargs)
 
 
 def slot_axes(caches_a: List[torch.Tensor],
@@ -84,10 +100,10 @@ def _require_frame_kernels(codec) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class CodecModel:
-    """A codec (HILCodec or EnCodec) + residual VQ, bound to the device it
-    runs on."""
+    """A codec (HILCodec, EnCodec or Avocodo) + its quantizer, bound to
+    the device it runs on."""
     codec: Any
-    vq: Q.ResidualVQ
+    vq: Any
     device: torch.device
 
     @classmethod
@@ -114,7 +130,7 @@ class CodecModel:
         generator reproduces JAX's draws)."""
         gen = torch.Generator().manual_seed(0)
         params, vq_state = self.init(gen)
-        if random_books:
+        if random_books and "embed" in vq_state:
             vq_state["embed"] = torch.randn(
                 tuple(vq_state["embed"].shape), generator=gen
             ).to(self.device)
@@ -145,16 +161,29 @@ class CodecModel:
         return wav_g.float(), vq_state, loss_vq, num_replaces
 
     # -- offline (whole-utterance) coding -----------------------------------
+    def _books(self, vq_state: Q.VQState) -> torch.Tensor:
+        """The Euclidean codebooks token coding needs; a quantizer without
+        them (`vq: ''`, shape-gain) reconstructs through `forward` only,
+        as in the JAX package."""
+        if not isinstance(self.vq, Q.ResidualVQ):
+            raise ValueError(
+                f"quantizer {type(self.vq).__name__} has no Euclidean "
+                f"codebook: token encode / decode and the streaming drivers "
+                f"are unavailable; reconstruct through forward")
+        return vq_state["embed"]
+
     def encode(self, params: Params, vq_state: Q.VQState, wav: torch.Tensor,
                n: Optional[int] = None) -> torch.Tensor:
         """wav [B, 1, T] -> tokens [n, B, T/hop] (int32)."""
+        books = self._books(vq_state)
         z = self.codec.encoder.apply(params["encoder"], wav)
-        return rvq_kernel.quantize(z.transpose(1, 2), vq_state["embed"], n)
+        return rvq_kernel.quantize(z.transpose(1, 2), books, n)
 
     def decode(self, params: Params, vq_state: Q.VQState,
-               tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [n, B, T'] -> wav [B, 1, T'*hop]."""
-        q = Q.dequantize(tokens, vq_state["embed"])
+               tokens: torch.Tensor):
+        """tokens [n, B, T'] -> wav [B, 1, T'*hop] (Avocodo: the list of
+        its three scales, as its decoder's apply gives them)."""
+        q = Q.dequantize(tokens, self._books(vq_state))
         return self.codec.decoder.apply(params["decoder"], q.transpose(1, 2))
 
     # -- streaming ----------------------------------------------------------
@@ -186,7 +215,7 @@ class CodecModel:
         encoder frame kernel (ops/encoder_kernel.py; its plain version for
         CPU tensors) over f frames, on folded params; the cache list handed
         in and out keeps its order and shapes."""
-        books = vq_state["embed"]
+        books = self._books(vq_state)
         step = self.codec.encoder.step
         if megakernel:
             _require_frame_kernels(self.codec)
@@ -211,7 +240,7 @@ class CodecModel:
         launch of the decoder frame kernel (ops/decoder_kernel.py; its
         plain version for CPU tensors) over f frames, on folded params; the
         cache list handed in and out keeps its order and shapes."""
-        books = vq_state["embed"]
+        books = self._books(vq_state)
         dtype = cache[0].dtype if cache else torch.float32
         L, f = tokens.shape[-1], frames_per_step
         if f < 1 or L % f:
@@ -242,7 +271,7 @@ class CodecModel:
 
         wav [B, 1, L*hop] -> (tokens [n, B, L], wav_out [B, 1, L*hop],
         new cache_enc, new cache_dec)."""
-        books = vq_state["embed"]
+        books = self._books(vq_state)
         dtype = cache_dec[0].dtype if cache_dec else torch.float32
         toks, outs = [], []
         for x in self._blocks(wav, frames_per_step):

@@ -1,6 +1,8 @@
-"""GAN discriminators of the flagship trainer
-(`hilcodec_tpu/models/discriminators.py`): the multi-filter-bank (MFBD) and
-multi-STFT (MSTFTD) discriminators and the `Discriminators` aggregate.
+"""GAN discriminators (`hilcodec_tpu/models/discriminators.py`): the
+multi-filter-bank (MFBD) and multi-STFT (MSTFTD) discriminators and the
+`Discriminators` aggregate of the flagship trainer, and the sub-band
+discriminator (SBD, with its MDC blocks) that Avocodo's discriminators
+use (`models/avocodo.py`).
 
 Each `apply(params, x)` maps x [B, 1, T] to (logits, feature maps);
 `Discriminators.apply` gathers them into the `{name: [tensors]}` dicts the
@@ -9,7 +11,8 @@ of its stack has a 1-tap height, so the PQMF bands fold into the batch and
 the stack runs as conv1d (the JAX package's `bands1d`, the same math as its
 `conv2d`). Weights keep the JAX shapes ([Cout, Cin, 1, k]). Init is torch's
 default conv init under weight norm, drawn from a `torch.Generator`.
-MPD, MSD and SBD are not ported yet.
+MPD and MSD are not ported yet, nor SBD as a member of the aggregate (no
+shipped config selects it there).
 """
 
 from __future__ import annotations
@@ -242,6 +245,142 @@ class MultiFilterBankDiscriminator:
 
     def apply(self, params: Params, x: torch.Tensor):
         return _gather(self.discs, params["discs"], x)
+
+
+# ---------------------------------------------------------------------------
+# Sub-band discriminator
+# ---------------------------------------------------------------------------
+
+def _lrelu02(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.2)
+
+
+@dataclasses.dataclass(frozen=True)
+class MDC:
+    """Multi-dilation conv block: parallel dilated convs summed, then a
+    strided post conv. As in the reference, the post conv pads with the
+    *last* dilated conv's padding."""
+    in_channels: int
+    out_channels: int
+    strides: int
+    kernel_size: Tuple[int, ...]
+    dilations: Tuple[int, ...]
+    norm: str = R.WEIGHT_NORM
+
+    def init(self, gen: torch.Generator) -> Params:
+        return {"convs": [_init_conv(gen, (self.out_channels,
+                                           self.in_channels, k), self.norm)
+                          for k in self.kernel_size],
+                "post": _init_conv(gen, (self.out_channels,
+                                         self.out_channels, 3), self.norm)}
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        out = None
+        for p, k, d in zip(params["convs"], self.kernel_size,
+                           self.dilations):
+            y = _lrelu02(F.conv1d(x, R.compute_weight(p, self.norm),
+                                  p.get("b"), dilation=d,
+                                  padding=get_padding(k, d)))
+            out = y if out is None else out + y
+        pad = get_padding(self.kernel_size[-1], self.dilations[-1])
+        p = params["post"]
+        return _lrelu02(F.conv1d(out, R.compute_weight(p, self.norm),
+                                 p.get("b"), stride=self.strides,
+                                 padding=pad))
+
+
+@dataclasses.dataclass(frozen=True)
+class SBDBlock:
+    segment_dim: int
+    strides: Tuple[int, ...]
+    filters: Tuple[int, ...]
+    kernel_size: Tuple[Tuple[int, ...], ...]
+    dilations: Tuple[Tuple[int, ...], ...]
+    norm: str = R.WEIGHT_NORM
+
+    def __post_init__(self):
+        mdcs, c_in = [], self.segment_dim
+        for s, f, k, d in zip(self.strides, self.filters, self.kernel_size,
+                              self.dilations):
+            mdcs.append(MDC(c_in, f, s, tuple(k), tuple(d), self.norm))
+            c_in = f
+        object.__setattr__(self, "mdcs", tuple(mdcs))
+
+    def init(self, gen: torch.Generator) -> Params:
+        return {"mdcs": [m.init(gen) for m in self.mdcs],
+                "post": _init_conv(gen, (1, self.filters[-1], 3),
+                                   self.norm)}
+
+    def apply(self, params: Params, x: torch.Tensor):
+        fmap = []
+        for m, p in zip(self.mdcs, params["mdcs"]):
+            x = m.apply(p, x)
+            fmap.append(x)
+        p = params["post"]
+        x = F.conv1d(x, R.compute_weight(p, self.norm), p.get("b"),
+                     padding=1)
+        return x, fmap
+
+
+@dataclasses.dataclass(frozen=True)
+class SBD:
+    """Sub-band discriminator over the PQMF bands `band_ranges` of x; a
+    `transpose` block takes time-bands of a finer PQMF (`f_pqmf_kwargs`)
+    instead, its segment axis as channels, so its input must be
+    `segment_size` samples long."""
+    channels: Tuple[Tuple[int, ...], ...]
+    strides: Tuple[Tuple[int, ...], ...]
+    kernel_sizes: Tuple[Tuple[Tuple[int, ...], ...], ...]
+    dilations: Tuple[Tuple[Tuple[int, ...], ...], ...]
+    band_ranges: Tuple[Tuple[int, int], ...]
+    transpose: Tuple[bool, ...]
+    pqmf_kwargs: Dict[str, Any]
+    f_pqmf_kwargs: Optional[Dict[str, Any]] = None
+    segment_size: Optional[int] = None
+    norm: str = R.WEIGHT_NORM
+    # the orthonormal PQMF (x sqrt(subbands)), or Avocodo's unscaled
+    # ParallelWaveGAN bank (False)
+    pqmf_orthonormal: bool = True
+
+    def __post_init__(self):
+        blocks = []
+        for c, k, d, s, br, tr in zip(self.channels, self.kernel_sizes,
+                                      self.dilations, self.strides,
+                                      self.band_ranges, self.transpose):
+            seg = (self.segment_size // br[1] - br[0] if tr
+                   else br[1] - br[0])
+            blocks.append(SBDBlock(seg, tuple(s), tuple(c),
+                                   tuple(tuple(x) for x in k),
+                                   tuple(tuple(x) for x in d), self.norm))
+        object.__setattr__(self, "blocks", tuple(blocks))
+
+    def init(self, gen: torch.Generator) -> Params:
+        return {"blocks": [b.init(gen) for b in self.blocks]}
+
+    def _pqmf(self, x: torch.Tensor, kwargs: Dict[str, Any]) -> torch.Tensor:
+        return P.analysis(x, kwargs.get("subbands", 4),
+                          kwargs.get("taps", 62),
+                          kwargs.get("cutoff_freq",
+                                     kwargs.get("cutoff_ratio", 0.142)),
+                          kwargs.get("beta", 9.0),
+                          orthonormal=self.pqmf_orthonormal)
+
+    def apply(self, params: Params, x: torch.Tensor):
+        logits, fmaps = [], []
+        y_in = self._pqmf(x, self.pqmf_kwargs)
+        y_in_f = None
+        for b, p, br, tr in zip(self.blocks, params["blocks"],
+                                self.band_ranges, self.transpose):
+            if tr:
+                if y_in_f is None:
+                    y_in_f = self._pqmf(x, self.f_pqmf_kwargs or {})
+                z = y_in_f[:, br[0]:br[1], :].transpose(1, 2)
+            else:
+                z = y_in[:, br[0]:br[1], :]
+            lg, fm = b.apply(p, z)
+            logits.append(lg)
+            fmaps.extend(fm)
+        return logits, fmaps
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Training losses (`hilcodec_tpu/models/losses.py`): multi-resolution mel,
-GAN hinge / least-squares, feature matching.
+Avocodo's single-resolution HiFi-GAN mel, GAN hinge / least-squares,
+feature matching.
 
 The GAN and feature losses take dicts `{name: [tensors]}` of the
 discriminators' logits or feature maps and return the loss dict keyed
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from functools import lru_cache
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +95,43 @@ class MelLoss:
             loss = loss + torch.mean(torch.square(diff)) \
                 + torch.mean(torch.abs(diff))
         return {"freq": loss}
+
+
+@lru_cache(maxsize=None)
+def _slaney_basis(sr: int, n_fft: int, n_mels: int, fmin: float,
+                  fmax, device: torch.device) -> torch.Tensor:
+    """Slaney-scale, Slaney-normed mel basis [n_mels, n_fft//2+1], once
+    per device."""
+    return torch.from_numpy(M.mel_filterbank(
+        sr, n_fft, n_mels, fmin, fmax, norm="slaney", htk=False)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class HifiGANMelLoss:
+    """Single-resolution L1 log-mel loss: the reference loss STFT
+    (`ops/stft.stft`, magnitude), a Slaney mel basis, log of the mel
+    clamped at clip_val."""
+    sampling_rate: int
+    clip_val: float
+    n_fft: int
+    num_mels: int
+    hop_size: int
+    win_size: int
+    fmin: float = 0.0
+    fmax: Optional[float] = None
+
+    def _logmel(self, x: torch.Tensor) -> torch.Tensor:
+        mag = S.stft(x, self.n_fft, self.hop_size, self.win_size,
+                     center=False, magnitude=True)
+        basis = _slaney_basis(self.sampling_rate, self.n_fft, self.num_mels,
+                              self.fmin, self.fmax, x.device)
+        mel = torch.einsum("mf,bfl->bml", basis.to(mag.dtype), mag)
+        return torch.log(torch.clamp(mel, min=self.clip_val))
+
+    def __call__(self, wav_g: torch.Tensor,
+                 wav_r: torch.Tensor) -> LossOutput:
+        return {"freq": torch.mean(torch.abs(self._logmel(wav_g)
+                                             - self._logmel(wav_r)))}
 
 
 def discriminator_loss(logits_g: DiscOutput, logits_r: DiscOutput,

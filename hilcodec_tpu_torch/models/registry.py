@@ -1,17 +1,18 @@
 """Model registry: config `model:` name -> CodecModel builder.
 
-The HILCodec and EnCodec families are ported; avocodo and audiodec raise
-and point at the roadmap."""
+The HILCodec, EnCodec and Avocodo families are ported; audiodec raises
+and points at the roadmap."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from .. import resolve_device
-from .codec import CodecModel, vq_from_kwargs
+from .avocodo import AvocodoModel
+from .codec import CodecModel, residual_vq
 from .encodec import EncodecModel
 
-_NOT_PORTED = ("avocodo", "audiodec")
+_NOT_PORTED = ("audiodec",)
 # the JAX registry's default stack when an EnCodec config has no vq_kwargs
 _ENCODEC_VQ = {"dim": 128, "codebook_size": 1024, "num_quantizers": 32}
 
@@ -19,8 +20,17 @@ _ENCODEC_VQ = {"dim": 128, "codebook_size": 1024, "num_quantizers": 32}
 def build_encodec(model_kwargs: Dict[str, Any], device=None) -> CodecModel:
     kw = dict(model_kwargs)
     kw["vq_kwargs"] = kw.get("vq_kwargs") or dict(_ENCODEC_VQ)
-    return CodecModel(EncodecModel.from_config(kw), vq_from_kwargs(kw),
-                      resolve_device(device))
+    return CodecModel(EncodecModel.from_config(kw),
+                      residual_vq(kw["vq_kwargs"]), resolve_device(device))
+
+
+def build_avocodo(model_kwargs: Dict[str, Any], device=None) -> CodecModel:
+    """The Avocodo generator with its residual VQ; it streams through the
+    full-rate head."""
+    codec = AvocodoModel.from_config(model_kwargs)
+    vq_kwargs = dict(model_kwargs.get("vq_kwargs") or {})
+    vq_kwargs.setdefault("dim", codec.vq_dim)
+    return CodecModel(codec, residual_vq(vq_kwargs), resolve_device(device))
 
 
 def build_codec_model(name: str, model_kwargs: Dict[str, Any],
@@ -31,6 +41,8 @@ def build_codec_model(name: str, model_kwargs: Dict[str, Any],
         return CodecModel.from_config(model_kwargs, device=device)
     if name == "encodec":
         return build_encodec(model_kwargs, device=device)
+    if name == "avocodo":
+        return build_avocodo(model_kwargs, device=device)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model family {name!r} is not ported to hilcodec_tpu_torch yet; "

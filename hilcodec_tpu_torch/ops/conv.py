@@ -41,6 +41,30 @@ import torch.nn.functional as F
 ROW_BLOCK = 16
 
 
+class _RowMatmul(torch.autograd.Function):
+    """rows [m, K] @ b [K, N] in blocks of ROW_BLOCK rows. The backward is
+    two plain products: only the forward must not depend on the batch, and
+    a backward through the blocks' slices would allocate a zero gradient
+    of all m rows for each block."""
+
+    @staticmethod
+    def forward(ctx, rows, b):
+        ctx.save_for_backward(rows, b)
+        m = rows.shape[0]
+        pad = (-m) % ROW_BLOCK
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
+        b = b.contiguous()
+        return torch.cat([rows[i:i + ROW_BLOCK] @ b
+                          for i in range(0, rows.shape[0], ROW_BLOCK)])[:m]
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, b = ctx.saved_tensors
+        return (g @ b.T if ctx.needs_input_grad[0] else None,
+                rows.T @ g if ctx.needs_input_grad[1] else None)
+
+
 def row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., K] @ b [K, N], each row computed the same way whatever the
     number of rows.
@@ -51,15 +75,8 @@ def row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with zeros); on the card this is one matmul."""
     if a.device.type != "cpu":
         return a @ b
-    rows = a.reshape(-1, a.shape[-1])
-    m = rows.shape[0]
-    pad = (-m) % ROW_BLOCK
-    if pad:
-        rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
-    b = b.contiguous()
-    out = torch.cat([rows[i:i + ROW_BLOCK] @ b
-                     for i in range(0, rows.shape[0], ROW_BLOCK)])
-    return out[:m].reshape(*a.shape[:-1], b.shape[1])
+    out = _RowMatmul.apply(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(*a.shape[:-1], b.shape[1])
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

@@ -15,6 +15,8 @@ straight-through quantized latent and `loss_vq`. `kmeans_init_state`
 initializes the codebooks from a first batch. Everything random (the
 dropout depth, the expiry candidates, the k-means seeds) is drawn by the
 caller and passed in (`RVQDraws`, `kmeans_init_indices`).
+
+`NoVQ` is the `vq: ''` ablation: the latents pass straight through.
 """
 
 from __future__ import annotations
@@ -137,6 +139,13 @@ class RVQDraws:
     `expire_idx` [n_q, K] that replace expired codewords."""
     n: int
     expire_idx: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "RVQDraws":
+        """The same draws with the candidate rows on `device`."""
+        if self.expire_idx is None:
+            return self
+        return dataclasses.replace(self,
+                                   expire_idx=self.expire_idx.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,6 +304,33 @@ class ResidualVQ:
             replaces[s] = expired.sum().to(torch.int32)
         new["embed"][s], new["ema_embed"][s], new["ema_num"][s] = (
             embed, ema_embed, ema_num)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoVQ:
+    """The `vq: ''` ablation: the codec without a quantizer. Latents pass
+    straight through with a zero VQ loss and an empty num_replaces; the
+    ResidualVQ call protocol, so every trainer and loop path runs as is."""
+    num_quantizers: int = 0
+    kmeans_init: bool = False
+    dropout: bool = False
+
+    def init_state(self, gen: torch.Generator, device="cpu") -> VQState:
+        # "initted" keeps the state tree non-empty for checkpoints
+        return {"initted": torch.ones((), dtype=torch.bool, device=device)}
+
+    def sample_draws(self, gen: torch.Generator, rows: int) -> RVQDraws:
+        return RVQDraws(0)
+
+    def kmeans_init_state(self, state: VQState, x: torch.Tensor,
+                          init_idx: torch.Tensor) -> VQState:
+        return state
+
+    def __call__(self, x: torch.Tensor, state: VQState,
+                 draws: Optional[RVQDraws] = None, training: bool = True):
+        zero = torch.zeros((), device=x.device)
+        return (x, state, zero,
+                torch.zeros((0,), dtype=torch.int32, device=x.device), None)
 
 
 def _kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int,

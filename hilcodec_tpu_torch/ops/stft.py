@@ -4,7 +4,9 @@
 one matmul against the windowed cos/sin DFT basis, in f32. `pad=True`
 left-pads n_fft-1 zeros (batch mode); `pad=False` expects the caller to
 supply the n_fft-1 samples of history (streaming mode). `hann_window` and
-`frame` serve the training losses and the STFT discriminator.
+`frame` serve the training losses and the STFT discriminator; `stft` is
+the reference loss STFT (reflect-padded, Hann-windowed framed rfft) of
+Avocodo's single-resolution mel loss.
 """
 
 from __future__ import annotations
@@ -42,6 +44,29 @@ def frame(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
             f"input length {x.shape[-1]} shorter than frame_length "
             f"{frame_length}; use longer segments (the configs use 24000)")
     return x.unfold(-1, frame_length, hop)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop: int, win_size: int,
+         center: bool = False, magnitude: bool = True) -> torch.Tensor:
+    """The reference loss STFT of [B, T] or [B, 1, T]: reflect-pad
+    n_fft // 2 (center) or (n_fft - hop) // 2 on both sides, frame from
+    sample 0, periodic Hann of win_size centred in n_fft, rfft in f32.
+    Returns [B, F, L] magnitudes or [B, F, L, 2] (re, im)."""
+    if x.ndim == 3:
+        x = x.squeeze(1)
+    p = n_fft // 2 if center else (n_fft - hop) // 2
+    x = F.pad(x[:, None], (p, p), mode="reflect")[:, 0]
+    window = hann_window(win_size, x.device)
+    if win_size < n_fft:
+        pad = n_fft - win_size
+        window = F.pad(window, (pad // 2, pad - pad // 2))
+    frames = frame(x, n_fft, hop) * window.to(x.dtype)
+    spec = torch.fft.rfft(frames.float(), dim=-1)
+    if magnitude:
+        mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2)
+        return mag.to(x.dtype).transpose(-1, -2)
+    out = torch.stack([spec.real, spec.imag], dim=-1)       # [B, L, F, 2]
+    return out.to(x.dtype).transpose(1, 2)                  # [B, F, L, 2]
 
 
 def causal_stft_basis(n_fft: int, win_size: Optional[int] = None,

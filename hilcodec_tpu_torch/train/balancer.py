@@ -7,6 +7,9 @@ generator. A non-finite EMA skips the generator update.
 
 State: ema_norms [K] f32 (EMA of the per-loss gradient norms) and ema_fix
 [] f32 (bias-correction accumulator).
+
+`SimpleBalancer` is Avocodo's: a plain weighted sum of the losses, whose
+total the Avocodo step differentiates directly.
 """
 
 from __future__ import annotations
@@ -77,3 +80,25 @@ class Balancer:
         logs = {f"ema_norm/{k}": debiased[i]
                 for i, k in enumerate(self.keys)}
         return out, new_state, finite, logs
+
+
+@dataclasses.dataclass(frozen=True)
+class SimpleBalancer:
+    """A weighted sum of the losses plus weight_others x the VQ loss; no
+    gradient rescaling (a config's `ema_decay` is dropped)."""
+    weights: Tuple[Tuple[str, float], ...]
+    weight_others: float = 1.0
+
+    @classmethod
+    def from_config(cls, balancer_kwargs: Dict[str, Any]
+                    ) -> "SimpleBalancer":
+        kw = dict(balancer_kwargs)
+        return cls(weights=tuple(kw.pop("weights").items()),
+                   weight_others=kw.get("weight_others", 1.0))
+
+    def total(self, losses: Dict[str, torch.Tensor],
+              others: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros((), device=others.device)
+        for k, w in self.weights:
+            out = out + w * losses[k].float()
+        return out + self.weight_others * others

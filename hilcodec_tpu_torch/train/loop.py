@@ -1,7 +1,9 @@
 """The training loop (`hilcodec_tpu/train/loop.py`), one device.
 
-`build_trainer(hps, device)` builds the GAN trainer of a HILCodec or
-EnCodec config (one balancer trainer for both, as in the JAX package);
+`build_trainer(hps, device)` builds the GAN trainer of a config: one
+balancer trainer for HILCodec and EnCodec (and the Avocodo generator under
+`train.trainer: hilcodec`), Avocodo's own trainer
+(`train/step_avocodo.py`) for `model: avocodo`, as in the JAX package;
 `TrainLoop` runs epochs in the JAX loop's order: the train steps on a
 DirectoriesDataset (k-means init of the codebooks on the first batch;
 with `train.plot_param_and_grad`, parameter and gradient histograms of the
@@ -30,20 +32,24 @@ import torch
 
 from .. import resolve_device, set_f32_parity_mode
 from ..data.loader import get_dataset_dataloader
+from ..models.avocodo import (AvocodoDiscriminators, AvocodoFullRate,
+                              AvocodoModel)
+from ..models.codec import CodecModel, residual_vq
 from ..models.discriminators import Discriminators
-from ..models.losses import MelLoss
+from ..models.losses import HifiGANMelLoss, MelLoss
 from ..models.registry import build_codec_model
 from ..ops import mel as M
 from ..ops import stft as ST
 from ..ops.rvq import RVQDraws
 from ..utils import checkpoint as ckpt
 from ..utils import summarize as S
-from .balancer import Balancer
+from .balancer import Balancer, SimpleBalancer
 from .grad_clip import make_clipper
 from .metrics import Metrics
 from .optim import make_optimizer
 from .schedulers import ReduceLROnPlateau, make_scheduler
 from .step import Trainer, TrainState, metrics_to_host, to_device
+from .step_avocodo import AvocodoCodecModel, AvocodoTrainer
 
 _NOT_PORTED = "is not ported to hilcodec_tpu_torch yet; see ROADMAP.md " \
     "(Queue 1, what is left of the training stack)"
@@ -53,11 +59,15 @@ def _plain(v):
     return v.to_dict() if hasattr(v, "to_dict") else v
 
 
-def _mel_loss_from_config(hps) -> MelLoss:
+def _mel_loss_from_config(hps):
     hp = hps.train
-    for flag in ("hifigan_mel_loss", "mel_grad_function"):
-        if hp.get(flag, False):
-            raise NotImplementedError(f"train.{flag} {_NOT_PORTED}")
+    if hp.get("hifigan_mel_loss", False):
+        d = hps.data
+        return HifiGANMelLoss(d.sampling_rate, d.get("clip_val", 1.0e-5),
+                              d.n_fft, d.get("num_mels", 80), d.hop_size,
+                              d.win_size)
+    if hp.get("mel_grad_function", False):
+        raise NotImplementedError(f"train.mel_grad_function {_NOT_PORTED}")
     return MelLoss(hps.data.sampling_rate, hps.data.get("clip_val", 1.0e-5),
                    no_zero=hp.get("no_zero_at_mel_filter", True),
                    n_mels_max=hp.get("n_mels_max", 80))
@@ -80,11 +90,43 @@ def _optim_sched_from_config(hps):
     return optim_g, optim_d, lr_g, lr_d, sched, clipper
 
 
-def build_trainer(hps, device=None) -> Trainer:
-    """The GAN trainer of a HILCodec or EnCodec config on `device` (CUDA
-    when None, which must then be available). `train.fbd_lowering` may
-    name either JAX lowering; both are the filter-bank discriminator's one
-    conv1d lowering here."""
+def build_avocodo_trainer(hps, device=None) -> AvocodoTrainer:
+    """The Avocodo trainer of a `model: avocodo` config: LSGAN and plain
+    feature matching, the weighted-sum balancer, D before G, PQMF
+    multi-scale targets, and the single-resolution HiFi-GAN mel loss at
+    the model's hop (not data.hop_size), as the JAX trainer has it."""
+    mk = _plain(hps.model_kwargs)
+    codec = AvocodoModel.from_config(mk)
+    model = AvocodoCodecModel(AvocodoFullRate(codec),
+                              residual_vq(mk.get("vq_kwargs") or {}),
+                              resolve_device(device))
+    disc = AvocodoDiscriminators(**{k: _plain(v)
+                                    for k, v in hps.disc_kwargs.items()})
+    hp, d = hps.train, hps.data
+    optim_g, optim_d, lr_g, lr_d, sched, clipper = \
+        _optim_sched_from_config(hps)
+    mel_loss = HifiGANMelLoss(d.sampling_rate, d.clip_val, d.n_fft,
+                              d.get("num_mels", 80), codec.hop_length,
+                              d.win_size)
+    return AvocodoTrainer(
+        model=model, disc=disc, mel_loss=mel_loss,
+        balancer=SimpleBalancer.from_config(_plain(hp.balancer_kwargs)),
+        optim_g=optim_g, optim_d=optim_d, sched_g=sched, sched_d=sched,
+        lr_g=lr_g, lr_d=lr_d,
+        pqmf_config={k: tuple(v)
+                     for k, v in _plain(hps.pqmf_config).items()},
+        use_lsgan=hp.get("use_lsgan", True),
+        use_normalized_fm=hp.get("use_normalized_fm_loss", False),
+        clipper=clipper)
+
+
+def build_trainer(hps, device=None):
+    """The trainer of a config on `device` (CUDA when None, which must
+    then be available): the balancer GAN trainer for HILCodec and EnCodec
+    and for Avocodo under `train.trainer: hilcodec` (its generator with
+    the full-rate head only), Avocodo's own trainer otherwise.
+    `train.fbd_lowering` may name either JAX lowering; both are the
+    filter-bank discriminator's one conv1d lowering here."""
     hp = hps.train
     lowering = hp.get("fbd_lowering", "conv2d")
     if lowering not in ("conv2d", "bands1d"):
@@ -100,11 +142,16 @@ def build_trainer(hps, device=None) -> Trainer:
     if hp.get("depthwise_lowering", "conv") != "conv":
         raise NotImplementedError(f"train.depthwise_lowering {_NOT_PORTED}")
     name = hps.get("model", "hilcodec")
-    if name not in ("hilcodec", "encodec") or \
-            hp.get("trainer", None) not in (None, "hilcodec"):
-        raise NotImplementedError(f"training model {name!r} {_NOT_PORTED}")
-    model = build_codec_model(name, _plain(hps.model_kwargs),
-                              device=resolve_device(device))
+    if name == "avocodo" and hp.get("trainer", None) != "hilcodec":
+        return build_avocodo_trainer(hps, device)
+    if name == "avocodo":
+        mk = _plain(hps.model_kwargs)
+        model = CodecModel(AvocodoFullRate(AvocodoModel.from_config(mk)),
+                           residual_vq(mk.get("vq_kwargs") or {}),
+                           resolve_device(device))
+    else:
+        model = build_codec_model(name, _plain(hps.model_kwargs),
+                                  device=resolve_device(device))
     disc = Discriminators(**{k: _plain(v)
                              for k, v in hps.disc_kwargs.items()})
     optim_g, optim_d, lr_g, lr_d, sched, clipper = \

@@ -106,13 +106,12 @@ class Trainer:
             epoch=torch.zeros((), dtype=torch.int32, device=dev),
             lr_scale=torch.ones((), device=dev))
 
-    def sample_draws(self, gen: torch.Generator, wav_shape) -> RVQDraws:
-        """The step's random draws for a batch of shape [B, 1, T]: the
-        dropout depth and the expiry candidate rows, on the model's
-        device."""
+    def sample_draws(self, gen: torch.Generator, wav_shape):
+        """The step's random draws for a batch of shape [B, 1, T], on the
+        model's device: the quantizer's (`RVQDraws`: the dropout depth and
+        the expiry candidate rows; `ShapeGainDraws` for shape-gain)."""
         rows = wav_shape[0] * (wav_shape[-1] // self.model.hop_length)
-        d = self.model.vq.sample_draws(gen, rows)
-        return RVQDraws(d.n, to_device(d.expire_idx, self.device))
+        return self.model.vq.sample_draws(gen, rows).to(self.device)
 
     # -- loss plumbing --------------------------------------------------------
     def _g_loss_fn(self, logits):
@@ -165,12 +164,14 @@ class Trainer:
                 grads, state.balancer)
             if la > 0:
                 out_grad = torch.nn.functional.pad(out_grad, (0, la))
-            others = torch.full((), self.balancer.weight_others,
-                                device=wav_g.device)
-            g_list = torch.autograd.grad(
-                [wav_g, loss_vq], leaves_g,
-                grad_outputs=[out_grad.to(wav_g.dtype), others],
-                allow_unused=True)
+            outs, grad_outs = [wav_g], [out_grad.to(wav_g.dtype)]
+            if loss_vq.requires_grad:       # `vq: ''` has a constant zero
+                outs.append(loss_vq)
+                grad_outs.append(torch.full((), self.balancer.weight_others,
+                                            device=wav_g.device))
+            g_list = torch.autograd.grad(outs, leaves_g,
+                                         grad_outputs=grad_outs,
+                                         allow_unused=True)
             g_grads = unflatten(dict(zip(
                 flatten(state.params_g),
                 [torch.zeros_like(p) if g is None else g

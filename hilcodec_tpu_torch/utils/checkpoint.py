@@ -69,26 +69,27 @@ def load_checkpoint(path: str, template: Any
 
 def load_codec(hps, path: Optional[str] = None, device=None,
                random_books: bool = True):
-    """(model, params_g, vq_state) of the config's codec, unfolded, on
-    `device` (CUDA when None). With a path, a train checkpoint read into
-    the initial state of the config's trainer, as the JAX tools read one;
-    without, the seeded init (`CodecModel.seeded(random_books)`). On the
-    card it sets the f32 parity mode."""
+    """(model, params_g, vq_state) of the config's codec
+    (`build_codec_model`: for Avocodo the streaming generator, whichever
+    trainer the config selects), unfolded, on `device` (CUDA when None).
+    With a path, a train checkpoint read into the initial state of the
+    config's trainer, as the JAX tools read one; without, the seeded init
+    (`CodecModel.seeded(random_books)`). On the card it sets the f32
+    parity mode."""
     import torch
 
     from .. import set_f32_parity_mode
     from ..models.registry import build_codec_model
     from ..train.loop import build_trainer
+    model = build_codec_model(hps.get("model", "hilcodec"),
+                              hps.model_kwargs.to_dict(), device=device)
     if path is None:
-        model = build_codec_model(hps.get("model", "hilcodec"),
-                                  hps.model_kwargs.to_dict(), device=device)
         params, vq_state = model.seeded(random_books)
     else:
         trainer = build_trainer(hps, device)
         state, _ = load_checkpoint(
             path, trainer.init_state(torch.Generator().manual_seed(0)))
-        model, params, vq_state = (trainer.model, state.params_g,
-                                   dict(state.vq_state))
+        params, vq_state = state.params_g, dict(state.vq_state)
     if model.device.type == "cuda":
         set_f32_parity_mode()
     return model, params, vq_state

@@ -65,7 +65,7 @@ def test_unported_options_point_at_roadmap(flag):
 
 
 def test_unported_model_exits_with_roadmap_pointer():
-    out = _run(["--model", "avocodo"])
+    out = _run(["--model", "audiodec"])
     assert out.returncode != 0 and "ROADMAP.md" in out.stderr
     assert out.stdout == ""
 

@@ -97,7 +97,10 @@ def test_bad_arguments_exit_non_zero(tmp_path, capsys):
         (tmp_path / "empty.txt").write_text("")
         with pytest.raises(SystemExit, match=msg):
             port_eval.main(args)
+    audiodec = tmp_path / "audiodec.yaml"
+    audiodec.write_text(yaml.safe_dump({"model": "audiodec",
+                                        "model_kwargs": {},
+                                        "data": {"sampling_rate": 24000}}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_eval.main(["-i", str(ref), "-c",
-                        os.path.join(ROOT, "configs", "avocodo_synth.yaml"),
-                        "--device", "cpu"])
+        port_eval.main(["-i", str(ref), "-c", str(audiodec), "--device",
+                        "cpu"])

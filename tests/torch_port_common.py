@@ -7,6 +7,8 @@ so every residual and spec branch carries signal, and the same flat arrays
 build the JAX tree and (through the port's bridge) the port's tree.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -84,18 +86,21 @@ def n(x):
 def write_jax_checkpoint(hps, path, seed=0):
     """A JAX train checkpoint of config `hps` (a JAX HParams) at `path`:
     the JAX trainer's initial state, its zero-init scales set to seeded
-    nonzero values and its codebooks to N(0, 1) draws, so that every
-    branch and every code carries signal. Returns the flat arrays."""
+    nonzero values and its codebooks (where it has Euclidean ones) to
+    N(0, 1) draws, so that every branch and every code carries signal. Returns the flat arrays."""
     from hilcodec_tpu.models import discriminators as jax_discs
     from hilcodec_tpu.train.loop import build_trainer
     try:
-        state = build_trainer(hps).init_state(jax.random.PRNGKey(seed))
+        state = jax.jit(build_trainer(hps).init_state)(
+            jax.random.PRNGKey(seed))
     finally:
         jax_discs.set_fbd_lowering("conv2d")
     flat = seeded_flat(state, seed)
     rng = np.random.default_rng(seed + 1)
     key = ".vq_state/embed"
-    flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32)
+    if key in flat:             # a quantizer with Euclidean codebooks
+        flat[key] = rng.standard_normal(flat[key].shape).astype(np.float32)
     flat["__extra__/epoch"] = np.asarray(1)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **flat)
     return flat
