@@ -7,7 +7,8 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
 
   1. device: card name and power limit, TF32 off, build every kernel of
      the path from the checkout's sources (csrc/rvq.cu and
-     csrc/segment.cu, one nvcc per source, started together); ptxas's
+     csrc/segment.cu, one nvcc per source, started together, and the host
+     range coder csrc/rangecoder.cpp with g++ beside them); ptxas's
      register and spill report, failing on any spill in either;
   2. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes the serving path gives it and more, then timed with
@@ -104,7 +105,27 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      (32 / 48 channels): shape-gain training at batch 24 (3 warm-up, 5
      timed steps; the shape / gain state moved, codes replaced, no RVQ
      launch); `vq: ''` for 2 steps; one shape-gain step on the card
-     against the CPU step at batch 2, with its argmax flips.
+     against the CPU step at batch 2, with its argmax flips;
+ 12. AudioDec at its defaults (encoder 32 -> 512 channels, decoder 512
+     channels with grouped k = 11 blocks, hop 300 = a 12.5 ms frame, RVQ
+     8 x 1024 x 64; seeded weights, N(0, 1) codebooks, folded; a
+     temporary yaml, as no config selects it): the RVQ kernel at C = 64
+     against the plain cascade at M = 1, 16, 128 and timed; a 16-slot
+     engine behind TCP (8 clients x 75 frames against their solo
+     streams); its serve CLI; ticks at 16 and 128 slots with the
+     profiler; the bench with --model audiodec at 16 and 128 streams;
+     export and infer -f 1 --latency on 3 s of seeded speech;
+ 13. entropy-coded token streams: the range coder's native and Python
+     paths bit-identical on seeded cdfs; the flagship's seeded codec state
+     (k-means codebooks) as a checkpoint; `python -m
+     hilcodec_tpu_torch.train_lm` for 60 steps at the default LM (dim 200,
+     8 heads, 5 layers, segments of 150 frames) on its tokens of a seeded
+     speech corpus, the held-out loss falling; `entropy_code` encode ->
+     .hilstream -> decode, tokens exact; `infer --entropy-stream` live on
+     3 s of seeded speech (roundtrip exact, kbps, coder latency p50 / p99
+     against the 13.33 ms frame, the decoder's lag); the live stepper's
+     probabilities against the batched LM's; and, reported only, the
+     card's live stream decoded on the CPU.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -267,8 +288,13 @@ def phase_device():
         "(f32 parity mode)")
     sources = ["rvq", "segment"]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as ex:
+    with ThreadPoolExecutor(len(sources) + 1) as ex:
+        # the range coder (host C++, g++) alongside the kernels
+        coder = ex.submit(cuda_build.build_host, "rangecoder")
         built = list(ex.map(cuda_build.build, sources))
+        coder_path, coder_secs, _ = coder.result()
+    log(f"[device] built csrc/rangecoder.cpp with {cuda_build.gxx()} in "
+        f"{coder_secs:.2f} s -> {os.path.relpath(coder_path, ROOT)}")
     for src, (path, secs, report) in zip(sources, built):
         log(f"[device] built csrc/{src}.cu with {cuda_build.nvcc()} "
             f"{' '.join(cuda_build.NVCC_FLAGS)} in {secs:.2f} s -> "
@@ -330,6 +356,9 @@ def phase_kernels(dev):
     dup[0, 900] = dup[0, 100]
     dup = dup.to(dev)
     cases = [(books8, M, n) for M in (1, 7, 16, 128, 1000) for n in (8, 3)]
+    # the flagship's tokenizer in phase 13: entropy_code's 4 s input (2
+    # segments of 150 frames) and train_lm's batches of 32 segments
+    cases += [(books8, M, 8) for M in (300, 4800)]
     # K2's shape on the EnCodec paths: serving at 16 and 128 slots,
     # training at 24 x 75 = 1800 rows
     cases += [(books32, M, 32) for M in (7, SERVE_SLOTS, 128, 1800)]
@@ -869,7 +898,8 @@ def phase_timings(model, params, vq_state, card, tag="timing"):
         out[slots] = (p50, p99, rtf)
         log(f"[{tag}] {slots} slots: engine tick p50 {p50 * 1e3:.2f} ms, "
             f"p99 {p99 * 1e3:.2f} ms, aggregate real-time factor "
-            f"{rtf:.1f}x over {TIMED_TICKS} ticks ({card})")
+            f"{rtf:.1f}x over {TIMED_TICKS} ticks, against the "
+            f"{frame_s * 1e3:.2f} ms frame ({card})")
         profile_ticks(engine, slots, p50, rng, tag=tag)
     return out
 
@@ -1508,7 +1538,7 @@ def cli(module, args, timeout=600):
     return out.stdout, time.perf_counter() - t0
 
 
-def in_process(main, argv):
+def in_process(main, argv, tag="tools"):
     """An entry point's `main(argv)` in this process (its kernel launches
     count here); its standard output, also logged."""
     import contextlib
@@ -1518,7 +1548,7 @@ def in_process(main, argv):
     with contextlib.redirect_stdout(buf):
         main(argv)
     for ln in buf.getvalue().strip().splitlines():
-        log(f"[tools]   {ln}")
+        log(f"[{tag}]   {ln}")
     return buf.getvalue(), time.perf_counter() - t0
 
 
@@ -2255,6 +2285,364 @@ def phase_routing(card):
     return res
 
 
+# --------------------------------------------------------------- phase 12
+
+AUDIODEC_ROWS = (1, SERVE_SLOTS, 128)   # tools, serving, the bench's 128
+AUDIODEC_BENCH_STREAMS = (16, 128)
+
+
+def write_audiodec_config(tmp):
+    """AudioDec at its shipped defaults (`AudioDec()`, RVQ 8 x 1024 x 64,
+    hop 300): no config in configs/ selects it, so a temporary yaml."""
+    import yaml
+    path = os.path.join(tmp, "audiodec.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"model": "audiodec", "model_kwargs": {},
+                        "data": {"sampling_rate": 24000}}, f)
+    return path
+
+
+def phase_rvq64(dev):
+    """K1 at AudioDec's shape (n = 8, K = 1024, C = 64) against the plain
+    cascade at M = 1, 16, 128 (tokens exact or ties, two more launches
+    bitwise equal), then timed through a CUDA graph beside its plain
+    version and its bound. Returns {M: (ms, plain_ms, bound_ms, bound_by)}
+    and the largest dequantized difference."""
+    import torch
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+
+    gen = torch.Generator().manual_seed(SEED + 120)
+    books = torch.randn((8, 1024, 64), generator=gen).to(dev)
+    out, max_err = {}, 0.0
+    for M in AUDIODEC_ROWS:
+        x = torch.randn((1, M, 64), generator=gen).to(dev)
+        ref = rvq.quantize(x, books, 8)
+        got = rvq_kernel.quantize_cuda(x, books, 8)
+        same = all(torch.equal(got, rvq_kernel.quantize_cuda(x, books, 8))
+                   for _ in range(2))
+        rep = rvq.token_parity_report(got, ref, x, books)
+        err = float((rvq.dequantize(got, books)
+                     - rvq.dequantize(ref, books)).abs().max())
+        max_err = max(max_err, err)
+        plan, _ = rvq_kernel.device_plan(dev, M, 1024, 64, 8)
+        ms = graph_ms(lambda: rvq_kernel.quantize_cuda(x, books, 8))
+        plain_ms = cuda_ms(lambda: rvq.quantize(x, books, 8))
+        bound_ms, bound_by = rvq_bound_ms(M, 8, 1024, 64)
+        out[M] = (ms, plain_ms, bound_ms, bound_by)
+        ok = rep["ok"] and same and tuple(got.shape) == (8, 1, M)
+        log(f"[audiodec-kernel] rvq_cascade M={M} n=8 K=1024 C=64 "
+            f"(G={plan.cluster} TM={plan.rows}, {plan.tiles} cluster(s), "
+            f"slice {plan.slice} x {plan.chunks} chunk(s)): mismatches "
+            f"{rep['mismatches']} (ties {rep['ties']}), dequantized max abs "
+            f"err {err:.3g}, two more launches "
+            f"{'bitwise equal' if same else 'DIFFER'}; kernel "
+            f"{ms * 1e3:.2f} us (CUDA graph), plain {plain_ms * 1e3:.1f} "
+            f"us, bound {bound_ms * 1e3:.2f} us ({bound_by}) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rvq_cascade at C = 64, M = {M}: {rep}")
+    return out, max_err
+
+
+def phase_audiodec(card):
+    """AudioDec at full width (its defaults: encoder 32 -> 512 channels,
+    decoder 512 channels with grouped k = 11 blocks, hop 300, RVQ 8 x 1024
+    x 64; seeded weights, N(0, 1) codebooks, folded): K1 at C = 64; a
+    16-slot engine behind TCP (8 clients x 75 frames against their solo
+    streams, one RVQ launch a tick); the serve CLI; ticks at 16 and 128
+    slots against the 12.5 ms frame, with the profiler; the bench with
+    --model audiodec at 16 and 128 streams; export and infer -f 1 on the
+    seeded weights. Returns the RVQ kernel's timings and launches."""
+    import tempfile
+    import torch
+    from hilcodec_tpu_torch import bench
+    from hilcodec_tpu_torch import export as tools_export
+    from hilcodec_tpu_torch import infer as tools_infer
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
+
+    t0 = time.perf_counter()
+
+    def done(part):
+        log(f"[time] phase 12 {part} done at "
+            f"{time.perf_counter() - t0:.1f} s into the phase")
+
+    timings, max_err = phase_rvq64(torch.device("cuda", 0))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = write_audiodec_config(tmp)
+        model, params, vq_state, sr = build_flagship("cuda", cfg)
+        log(f"[audiodec] AudioDec(): hop {model.hop_length}, RVQ "
+            f"{model.vq.num_quantizers} x {model.vq.codebook_size} x "
+            f"{model.vq.dim}, caches {[len(c) for c in model.init_cache(1)]}"
+            f" tensors, slot axes {model.cache_axes()}")
+        serve_launches = phase_serve(model, params, vq_state, sr,
+                                     tag="audiodec-serve")
+        phase_serve_cli(cfg, card, "audiodec-serve-cli")
+        done("serving")
+        ticks = phase_timings(model, params, vq_state, card,
+                              tag="audiodec-timing")
+        del model, params, vq_state
+        torch.cuda.empty_cache()
+        done("ticks")
+        rvq_kernel.reset_launches()
+        for streams in AUDIODEC_BENCH_STREAMS:
+            argv = [str(streams), "--seconds", "1", "--model", "audiodec"]
+            log(f"[audiodec-bench] python -m hilcodec_tpu_torch.bench "
+                f"{' '.join(argv)}: {json.dumps(bench.run(argv))}")
+        bench_launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        log(f"[audiodec-bench] rvq_cascade launches over both runs "
+            f"{bench_launches} (n = 8, C = 64)")
+        done("bench")
+
+        deploy = os.path.join(tmp, "deploy", "ad")
+        _, dt = in_process(tools_export.main, ["-c", cfg, "-o", deploy])
+        with np.load(deploy + "_deploy.npz") as z:
+            books = z["codebooks"].shape
+            n_leaves = len(z.files)
+        log(f"[audiodec-tools] export (seeded weights) in {dt:.1f} s: "
+            f"{n_leaves} leaves, codebooks {books} ({card})")
+        if books != (8, 1024, 64):
+            raise AssertionError(f"export wrote codebooks {books}")
+        wav = speech_batch(np.random.default_rng(SEED + 121), 1,
+                           TOOLS_SECONDS * 24000)[0, 0]
+        inp = os.path.join(tmp, "in.wav")
+        write_wav(inp, wav, 24000)
+        rvq_kernel.reset_launches()
+        o = os.path.join(tmp, "infer_ad")
+        text, dt = in_process(tools_infer.main, [
+            "-c", cfg, "-i", inp, "-o", o, "-f", "1", "--latency"])
+        tools_launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        tok = np.load(o + "_quantized.npy")
+        out_wav, out_sr = read_wav(o + "_output.wav")
+        L = TOOLS_SECONDS * 24000 // 300
+        if tok.shape != (8, 1, L) or out_wav.shape != (L * 300,) \
+                or not np.isfinite(out_wav).all():
+            raise AssertionError(f"infer: tokens {tok.shape}, wav "
+                                 f"{out_wav.shape}")
+        nums = dict(re.findall(r"(encoder|decoder) RTF:\s+([\d.]+)x", text))
+        lat = re.search(r"p50 ([\d.]+)\s+p90 ([\d.]+)\s+p99 ([\d.]+) ms",
+                        text)
+        log(f"[audiodec-tools] infer -f 1: encoder RTF {nums['encoder']}x, "
+            f"decoder RTF {nums['decoder']}x on {TOOLS_SECONDS} s; per-step "
+            f"latency p50 {lat.group(1)} / p90 {lat.group(2)} / p99 "
+            f"{lat.group(3)} ms against 12.50 ms; rvq_cascade launches "
+            f"{tools_launches} ({card})")
+        if tools_launches == 0:
+            raise AssertionError("infer launched no rvq_cascade")
+    done("tools")
+    return dict(timings=timings, max_err=max_err,
+                serve_launches=serve_launches, bench_launches=bench_launches,
+                tools_launches=tools_launches, ticks=ticks)
+
+
+# --------------------------------------------------------------- phase 13
+
+LM_STEPS = 60                 # train_lm steps at its default batch of 32
+LM_SEG = 150                  # the CLIs' default segment (2 s at 75 fps)
+LM_ARCH = "200,8,5,150"       # the CLIs' default LM
+CODER_SYMBOLS = 3000
+# the live stepper against the batched LM, max abs probability difference:
+# the CPU tests' bound (PROB_ATOL of tests/test_torch_lm.py); the card
+# read 1.79e-7
+LM_STEP_TOL = 1e-5
+
+
+def phase_coder():
+    """The range coder's native (the checkout's csrc/rangecoder.cpp, built
+    with g++) and Python paths on seeded LM-like cdfs over 1024 symbols:
+    the same bytes, both decode back; times of each."""
+    from hilcodec_tpu_torch.ops import cuda_build
+    from hilcodec_tpu_torch.ops import entropy_coding as E
+
+    path, secs, _ = cuda_build.build_host("rangecoder")
+    rng = np.random.default_rng(SEED + 130)
+    cdfs = np.stack([E.quantize_cdf(rng.dirichlet(np.ones(1024) * a))
+                     for a in rng.uniform(0.02, 2.0, CODER_SYMBOLS)])
+    syms = np.array([rng.choice(1024, p=np.diff(c) / c[-1]) for c in cdfs])
+    times = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        data = E.encode_symbols(syms, cdfs, native=native)
+        t1 = time.perf_counter()
+        back = E.decode_symbols(data, cdfs, native=native)
+        times[native] = (data, t1 - t0, time.perf_counter() - t1,
+                         np.array_equal(back, syms))
+    same = times[True][0] == times[False][0]
+    log(f"[coder] csrc/rangecoder.cpp built with {cuda_build.gxx()} "
+        f"{' '.join(cuda_build.GXX_FLAGS)} in {secs:.2f} s -> "
+        f"{os.path.relpath(path, ROOT)}; {CODER_SYMBOLS} symbols, "
+        f"{len(times[True][0])} bytes: native and Python bytes "
+        f"{'identical' if same else 'DIFFER'}; encode / decode native "
+        f"{times[True][1] * 1e3:.2f} / {times[True][2] * 1e3:.2f} ms, "
+        f"Python {times[False][1] * 1e3:.1f} / {times[False][2] * 1e3:.1f} "
+        f"ms; roundtrips {times[True][3]} / {times[False][3]}")
+    if not (same and times[True][3] and times[False][3]):
+        raise AssertionError("the native and Python range coders disagree")
+
+
+def phase_entropy(card):
+    """Entropy-coded token streams on the card: the range coder; the
+    flagship's codec state (train_setup: seeded, k-means codebooks) saved
+    as a checkpoint; `train_lm` for LM_STEPS steps at the default LM on
+    its tokens of a seeded speech corpus (the held-out loss must fall);
+    `entropy_code` encode -> .hilstream -> decode (tokens exact, CRC);
+    `infer --entropy-stream` live on 3 s of seeded speech (roundtrip
+    exact; kbps, coder latency p50 / p99 against the 13.33 ms frame, the
+    decoder's lag); the live stepper's probabilities against the batched
+    LM's; and, reported only, the live stream decoded on the CPU. The
+    CLIs run in this process: the RVQ kernel's launches of the flagship's
+    tokenizer (C = 128) are counted."""
+    import tempfile
+    import torch
+    from hilcodec_tpu_torch import entropy_code, infer, train_lm
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.serve.entropy_live import (LiveTokenDecoder,
+                                                       lm_stepper)
+    from hilcodec_tpu_torch.train.lm import lm_inputs_from_tokens
+    from hilcodec_tpu_torch.utils.bitstream import read_hilstream
+    from hilcodec_tpu_torch.utils.checkpoint import save_checkpoint
+    from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
+
+    t0 = time.perf_counter()
+
+    def done(part):
+        log(f"[time] phase 13 {part} done at "
+            f"{time.perf_counter() - t0:.1f} s into the phase")
+
+    phase_coder()
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, state = train_setup("cuda", TRAIN_BATCH, SEED + 131)
+        ckpt = save_checkpoint(os.path.join(tmp, "codec"), 1, state)
+        del state
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(SEED + 132)
+        for split, count, seconds in (("train", 8, 6), ("eval", 2, 4)):
+            os.makedirs(os.path.join(tmp, "corpus", split))
+            for i, w in enumerate(speech_batch(rng, count, seconds * 24000)):
+                write_wav(os.path.join(tmp, "corpus", split, f"{i}.wav"),
+                          w[0], 24000)
+        done("set-up")
+
+        lm_dir = os.path.join(tmp, "lm")
+        rvq_kernel.reset_launches()
+        text, dt = in_process(train_lm.main, [
+            "-c", CONFIG, "--ckpt", ckpt, "--data",
+            os.path.join(tmp, "corpus"), "--steps", str(LM_STEPS), "--out",
+            lm_dir], tag="lm-train")
+        launches += rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        bits0 = float(re.search(r"step 0: held-out ([\d.]+)", text).group(1))
+        final = float(re.search(r"FINAL: held-out ([\d.]+)", text).group(1))
+        ms = re.findall(r"(\d+) ms/step", text)[-1]
+        log(f"[lm-train] default LM ({LM_ARCH}) {LM_STEPS} steps at batch "
+            f"32: held-out {bits0:.3f} -> {final:.3f} bits/token, {ms} "
+            f"ms/step, {dt:.1f} s with tokenizing ({card})")
+        if not final < bits0:
+            raise AssertionError("train_lm: the held-out loss did not fall")
+        lm_ckpt = os.path.join(lm_dir, f"{LM_STEPS:05d}.ckpt.npz")
+        done("train_lm")
+
+        wav = speech_batch(np.random.default_rng(SEED + 133), 1,
+                           4 * 24000)[0, 0]
+        inp = os.path.join(tmp, "in4.wav")
+        write_wav(inp, wav, 24000)
+        stream = os.path.join(tmp, "s.hilstream")
+        base = ["-c", CONFIG, "--ckpt", ckpt, "--lm", lm_ckpt]
+        rvq_kernel.reset_launches()
+        text, dt_enc = in_process(entropy_code.main, base + [
+            "-i", inp, "--out", stream], tag="entropy-code")
+        launches += rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        enc = json.loads(text.strip().splitlines()[-1])
+        text, dt_dec = in_process(entropy_code.main, base + [
+            "--decode", stream, "--out-wav", stream + ".wav"],
+            tag="entropy-code")
+        dec = json.loads(text.strip().splitlines()[-1])
+        out_wav, _ = read_wav(stream + ".wav")
+        meta, _ = read_hilstream(stream)
+        log(f"[entropy-code] {enc['input_seconds']} s, {enc['tokens']} "
+            f"tokens in {meta['n_seg']} segments: roundtrip_exact "
+            f"{enc['roundtrip_exact']}, {enc['bits_per_token']} bits/token, "
+            f"{enc['kbps_entropy_coded']} kbps against "
+            f"{enc['kbps_fixed_rate']} fixed ({enc['saved_pct']}% saved); "
+            f"encode + check {dt_enc:.1f} s, standalone decode "
+            f"{dt_dec:.1f} s, CRC held, {len(out_wav)} samples ({card})")
+        if not enc["roundtrip_exact"] or dec["tokens"] != enc["tokens"] \
+                or len(out_wav) != meta["n_seg"] * LM_SEG * 320 \
+                or not np.isfinite(out_wav).all():
+            raise AssertionError(f"entropy_code: {enc} / {dec}")
+        done("entropy_code")
+
+        wav = speech_batch(np.random.default_rng(SEED + 134), 1,
+                           TOOLS_SECONDS * 24000)[0, 0]
+        inp = os.path.join(tmp, "in3.wav")
+        write_wav(inp, wav, 24000)
+        o = os.path.join(tmp, "live")
+        rvq_kernel.reset_launches()
+        text, dt = in_process(infer.main, [
+            "-c", CONFIG, "--ckpt", ckpt, "-i", inp, "-o", o,
+            "--entropy-stream", lm_ckpt, "--lm-arch", LM_ARCH],
+            tag="entropy-live")
+        launches += rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        m = re.search(r"roundtrip_exact=(\w+)\s+([\d.]+) kbps .*fixed-rate "
+                      r"([\d.]+) kbps", text)
+        lat = re.search(r"coder latency: p50 ([\d.]+) ms\s+p99 ([\d.]+) ms",
+                        text)
+        lag = re.search(r"lag: mean ([\d.]+) frames \((\d+) ms\), max (\d+)",
+                        text)
+        log(f"[entropy-live] infer --entropy-stream on {TOOLS_SECONDS} s: "
+            f"roundtrip_exact {m.group(1)}, {m.group(2)} kbps against "
+            f"{m.group(3)} fixed; coder latency a frame p50 {lat.group(1)} "
+            f"/ p99 {lat.group(2)} ms against 13.33 ms; decoder lag mean "
+            f"{lag.group(1)} frames ({lag.group(2)} ms), max {lag.group(3)} "
+            f"({card})")
+        if m.group(1) != "True":
+            raise AssertionError("the live roundtrip is not exact")
+        done("live")
+
+        # the live stepper against the batched LM on the same tokens
+        frames = np.load(o + "_quantized.npy")[:, 0].T.astype(np.int64)
+        lm, lm_params = entropy_code.load_lm(lm_ckpt, 8, 1024, 200, 8, 5,
+                                             LM_SEG, "cuda")
+        seg = frames[:LM_SEG]
+        with torch.no_grad():
+            batched = lm.apply(lm_params, lm_inputs_from_tokens(
+                torch.from_numpy(seg.T[:, None]).cuda()))[0][0]
+        batched = batched.cpu().numpy().astype(np.float64)
+        run, st, off, prev, worst = lm_stepper(lm, lm_params), None, 0, \
+            None, 0.0
+        for i in range(LM_SEG):
+            probs, st, off = run(prev, st, off)
+            worst = max(worst, float(np.abs(probs - batched[..., i]).max()))
+            prev = seg[i]
+        log(f"[entropy-live] live stepper against the batched LM on the "
+            f"card, {LM_SEG} frames: max abs probability difference "
+            f"{worst:.3g} (bound {LM_STEP_TOL:g})")
+        if not worst <= LM_STEP_TOL:
+            raise AssertionError("the live stepper's probabilities depart "
+                                 "from the batched LM's")
+
+        # finding, not asserted: the card's live stream decoded on the CPU
+        meta, blob = read_hilstream(o + ".hilstream")
+        cpu_lm, cpu_params = entropy_code.load_lm(lm_ckpt, 8, 1024, 200, 8,
+                                                  5, LM_SEG, "cpu")
+        dec = LiveTokenDecoder(cpu_lm, cpu_params, seg_tokens=LM_SEG)
+        dec.feed(blob, finished=True)
+        try:
+            got = np.stack(dec.pull_n(len(frames)))
+            agree = (got == frames).all(1)
+            first = int(np.argmin(agree)) if not agree.all() else None
+            log(f"[entropy-cross] the card's live stream decoded by the "
+                f"port on the CPU: {int(agree.sum())} of {len(frames)} "
+                f"frames equal the card's tokens; first divergence at frame "
+                f"{first} (reported, not required: decoding is promised on "
+                f"the encoding device kind only)")
+        except Exception as e:       # a finding, not a check of the port
+            log(f"[entropy-cross] the CPU decode of the card's stream "
+                f"raised {e!r} (reported, not required)")
+    done("all")
+    return dict(launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2300,6 +2688,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_routing(line)
     done(11)
+    torch.cuda.empty_cache()
+    audiodec = phase_audiodec(line)
+    done(12)
+    torch.cuda.empty_cache()
+    entropy = phase_entropy(line)
+    done(13)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -2315,6 +2709,7 @@ def main() -> int:
         "launches_train_path": train["launches"],
         "launches_tools_path": tools["launches"],
         "launches_encodec_bench": encodec["bench_launches"],
+        "launches_lm_path": entropy["launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]
@@ -2350,6 +2745,24 @@ def main() -> int:
         entry[f"ms_m{M}"] = timings[(M, 12)][0]
         entry[f"plain_ms_m{M}"] = timings[(M, 12)][1]
         entry[f"bound_ms_m{M}"] = timings[(M, 12)][2]
+    kernels.append(entry)
+    # the same kernel at AudioDec's C = 64: its serving path at M =
+    # SERVE_SLOTS (the launches), its bench (M = 16 and 128) and its tools
+    # (M = 1)
+    ms, plain_ms, bound_ms, bound_by = audiodec["timings"][SERVE_SLOTS]
+    entry = {
+        "name": f"{rvq_kernel.KERNEL}@C=64", "route": "cuda",
+        "source": rvq_kernel.SOURCE,
+        "replaces": "hilcodec_tpu/ops/pallas_rvq.py:148",
+        "launches": audiodec["serve_launches"],
+        "launches_bench": audiodec["bench_launches"],
+        "launches_tools_path": audiodec["tools_launches"],
+        "max_abs_err": audiodec["max_err"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    for M in AUDIODEC_ROWS:
+        if M != SERVE_SLOTS:
+            entry[f"ms_m{M}"], entry[f"plain_ms_m{M}"], \
+                entry[f"bound_ms_m{M}"], _ = audiodec["timings"][M]
     kernels.append(entry)
     for mod, replaces in ((decoder_kernel,
                            "hilcodec_tpu/ops/pallas_decoder.py:490"),

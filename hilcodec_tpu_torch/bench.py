@@ -3,13 +3,14 @@
 Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
       [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
-      [--model hilcodec|encodec|avocodo] [--device D]
+      [--model hilcodec|encodec|avocodo|audiodec] [--device D]
 
 The model is the operating point of bench.py for its family: HILCodec
 defaults with both res_scale set (the flagship), `--model encodec`,
-EnCodec defaults (SEANet + 2-layer LSTM bottleneck), or `--model
-avocodo`, AvocodoModel defaults (streaming its full-rate head); seeded
-init, N(0, 1) codebooks, 8 quantizers, folded params. It times `encode_stream` then
+EnCodec defaults (SEANet + 2-layer LSTM bottleneck), `--model
+avocodo`, AvocodoModel defaults (streaming its full-rate head), or
+`--model audiodec`, AudioDec defaults (hop 300) with a 64-dim VQ; seeded
+init, N(0, 1) codebooks, 8 quantizers of 1024 codes, folded params. It times `encode_stream` then
 `decode_stream` (frame kernels
 with --megakernel; the plain frame step by default, as in the JAX
 package), or `encode_decode_stream` with --fused, over S seconds of audio
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from . import resolve_device, set_f32_parity_mode
+from .models.audiodec import AudioDec
 from .models.avocodo import AvocodoModel
 from .models.codec import CodecModel
 from .models.encodec import EncodecModel
@@ -51,7 +53,7 @@ DISPATCH_BLOCKING = 100
 DISPATCH_PIPELINED = 200
 # bench.py options the port does not have yet
 _NOT_PORTED = ("--mesh", "--dtype", "--depthwise", "--unroll", "--chunks")
-MODELS = ("hilcodec", "encodec", "avocodo")
+MODELS = ("hilcodec", "encodec", "avocodo", "audiodec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,8 +135,8 @@ def parse_args(argv: List[str]) -> Args:
                 model)
 
 
-def _bench_vq() -> ResidualVQ:
-    return ResidualVQ(dim=128, codebook_size=1024, num_quantizers=8,
+def _bench_vq(dim: int = 128) -> ResidualVQ:
+    return ResidualVQ(dim=dim, codebook_size=1024, num_quantizers=8,
                       kmeans_init=False)
 
 
@@ -155,6 +157,12 @@ def build_avocodo_bench_model(device: torch.device) -> CodecModel:
     """bench.py's `--model avocodo` point: AvocodoModel defaults (the
     full-rate head streams), 8 quantizers."""
     return CodecModel(AvocodoModel(), _bench_vq(), device)
+
+
+def build_audiodec_bench_model(device: torch.device) -> CodecModel:
+    """bench.py's `--model audiodec` point: AudioDec defaults (strides
+    3, 4, 5, 5: hop 300), 8 quantizers of dim 64."""
+    return CodecModel(AudioDec(), _bench_vq(dim=64), device)
 
 
 def bench_params(model: CodecModel):
@@ -288,7 +296,8 @@ def run(argv: List[str]) -> dict:
         set_f32_parity_mode()
     build = {"hilcodec": build_bench_model,
              "encodec": build_encodec_bench_model,
-             "avocodo": build_avocodo_bench_model}[args.model]
+             "avocodo": build_avocodo_bench_model,
+             "audiodec": build_audiodec_bench_model}[args.model]
     model = build(device)
     params, vq_state = bench_params(model)
     bench = dispatch_bench if args.dispatch else stream_bench

@@ -14,6 +14,8 @@ or with --stream (and for inputs over 512 hops)
 `encode_stream` / `decode_stream`. A quantizer without Euclidean
 codebooks (`vq: ''`, shape-gain) has no token coding: the codec
 reconstructs through `forward` (at -n stages), as the JAX eval does.
+`model: audiodec` exits with an error, as the JAX eval cannot run it
+either: it takes the bare AudioDec generator, which has no token coding.
 Prints each metric's mean and 95% t-interval, and per-file values with
 -v.
 """
@@ -101,6 +103,11 @@ def score_pair(ref, deg, sr, metrics):
 def codec_runner(hps, ckpt=None, n=None, stream=False, device=None):
     """wav [T] (numpy) -> the codec's reconstruction [T // hop * hop]."""
     from .utils.checkpoint import load_codec
+    if hps.get("model", "hilcodec") == "audiodec":
+        sys.exit("error: eval does not run model: audiodec, as the JAX "
+                 "eval does not: it takes the bare generator of "
+                 "build_model, which has no token coding; score the output "
+                 "of infer in degraded mode (-d) instead")
     if not ckpt:
         print("warning: no --ckpt, scoring randomly initialized weights",
               file=sys.stderr)

@@ -9,13 +9,22 @@ around work that ends in a device synchronize, after one warm-up pass).
 Usage:
   python -m hilcodec_tpu_torch.infer -c CONFIG -i input.wav [-o OUT]
       [--ckpt PATH] [-n NUM_QUANTIZERS] [-f FRAMES_PER_STEP] [--latency]
-      [--profile DIR] [--device DEV]
+      [--profile DIR] [--entropy-stream LM_CKPT|random]
+      [--lm-arch D,H,L,S] [--device DEV]
 
 Without --ckpt the weights are the port's seeded init with N(0, 1)
 codebooks. --latency times each step of f frames (encode and decode, one
 step a call) against its f*hop budget: p50 / p90 / p99. --profile writes a
 torch.profiler chrome trace into DIR. The input is cut to a whole number
 of steps.
+
+--entropy-stream codes the tokens live, frame by frame, through the
+token LM (an LM checkpoint of `train_lm`, or `random` for its seeded
+init; architecture dim,heads,layers,seg_tokens from --lm-arch) and the
+arithmetic coder (`serve/entropy_live.py`), decodes them back live, and
+writes `{OUT}.hilstream`; it prints the roundtrip flag, the kbps against
+the fixed rate, the coder's per-frame latency p50 / p99 against the frame
+and the decoder's lag in frames. The LM runs on the codec's device.
 """
 
 import argparse
@@ -86,14 +95,13 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; fails without it)")
     p.add_argument("--entropy-stream", default=None, metavar="LM_CKPT",
-                   help="not ported yet (see ROADMAP.md)")
-    p.add_argument("--lm-arch", default=None,
-                   help="not ported yet (see ROADMAP.md)")
+                   help="live entropy-coded streaming: per-frame tokens "
+                        "-> LM-driven arithmetic bitstream -> live decode "
+                        "back, bit-exact; writes OUTPUT.hilstream "
+                        "(`random`: the LM's seeded init)")
+    p.add_argument("--lm-arch", default="200,8,5,150",
+                   help="dim,heads,layers,seg_tokens of the LM checkpoint")
     ns = p.parse_args(argv)
-    if ns.entropy_stream or ns.lm_arch:
-        sys.exit("error: --entropy-stream / --lm-arch need the LM and the "
-                 "range coder, not ported to hilcodec_tpu_torch yet (see "
-                 "ROADMAP.md, Queue 1 item 3)")
     fps = ns.frames_per_step
     if fps < 1:
         sys.exit("error: -f must be positive")
@@ -159,6 +167,66 @@ def main(argv=None) -> None:
     write_wav(f"{ns.output}_output.wav", out[0, 0].cpu().numpy(), sr)
     print(f"wrote {ns.output}_quantized.npy {tuple(tok.shape)} and "
           f"{ns.output}_output.wav")
+    if ns.entropy_stream:
+        live_entropy_stream(ns, model, tok, sr, hop)
+
+
+def live_entropy_stream(ns, model, tokens, sr, hop) -> None:
+    """Per-frame tokens -> bitstream -> tokens, live, on the codec's
+    device: the encoder pushes each frame and hands its settled bytes to
+    the decoder, which pulls every frame it can decode safely. Writes
+    {OUT}.hilstream (the live (t, q) symbol order) and prints the result;
+    exits non-zero unless the roundtrip is exact."""
+    from .entropy_code import load_lm
+    from .serve.entropy_live import LiveTokenDecoder, LiveTokenEncoder
+    from .utils.bitstream import token_crc32, write_hilstream
+
+    dim, heads, layers, seg = (int(v) for v in ns.lm_arch.split(","))
+    n_q = tokens.shape[0]
+    card = int(model.vq.codebook_size)
+    path = None if ns.entropy_stream == "random" else ns.entropy_stream
+    lm, lm_params = load_lm(path, n_q, card, dim, heads, layers, seg,
+                            model.device)
+    frames = tokens[:, 0, :].T                      # [T, n_q]
+    enc = LiveTokenEncoder(lm, lm_params, seg_tokens=seg)
+    dec = LiveTokenDecoder(lm, lm_params, seg_tokens=seg)
+    blob, got, lat_ms, lags = bytearray(), [], [], []
+    for t in range(len(frames)):
+        t0 = time.perf_counter()
+        settled = enc.push(frames[t])
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if settled:
+            blob.extend(settled)
+            dec.feed(settled)
+            got.extend(dec.pull())
+        lags.append(t + 1 - len(got))               # frames behind
+    tail = enc.finish()
+    blob.extend(tail)
+    dec.feed(tail, finished=True)
+    got.extend(dec.pull_n(len(frames) - len(got)))
+
+    exact = bool((np.stack(got) == frames).all())
+    seconds = len(frames) * hop / sr
+    kbps = len(blob) * 8 / seconds / 1000
+    fixed = n_q * np.log2(card) * sr / hop / 1000
+    lat = np.sort(np.asarray(lat_ms))
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(int(0.99 * len(lat)), len(lat) - 1)]
+    out_path = f"{ns.output}.hilstream"
+    write_hilstream(out_path, bytes(blob), n_q=n_q, card=card,
+                    seg_tokens=seg, n_seg=max(1, len(frames) // seg),
+                    sampling_rate=sr, hop=hop, lm_dim=dim, lm_heads=heads,
+                    lm_layers=layers, token_crc=token_crc32(np.stack(got)))
+    print(f"live entropy stream: roundtrip_exact={exact}  "
+          f"{kbps:.3f} kbps ({len(blob)} bytes / {seconds:.2f} s)  "
+          f"vs fixed-rate {fixed:.2f} kbps")
+    print(f"  per-frame coder latency: p50 {p50:.2f} ms  p99 {p99:.2f} ms "
+          f"(budget {hop / sr * 1e3:.2f} ms)")
+    print(f"  decoder settled-bits lag: mean {np.mean(lags):.1f} frames "
+          f"({np.mean(lags) * hop / sr * 1e3:.0f} ms), max {max(lags)}")
+    print(f"  wrote {out_path}")
+    if not exact:
+        raise SystemExit("LIVE ROUNDTRIP MISMATCH")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Full codec: encoder -> RVQ -> decoder, offline and streaming.
 
-Counterpart of `hilcodec_tpu/models/codec.py`: one codec of any ported
-family (HILCodec, `models/hilcodec.py`; EnCodec, `models/encodec.py`;
-Avocodo, `models/avocodo.py`) with its quantizer, built by
-`models/registry.py`. A HILCodec config routes its quantizer by its `vq`
+Counterpart of `hilcodec_tpu/models/codec.py`: one codec of any family
+(HILCodec, `models/hilcodec.py`; EnCodec, `models/encodec.py`; Avocodo,
+`models/avocodo.py`; AudioDec, `models/audiodec.py`) with its quantizer,
+built by `models/registry.py`. A HILCodec config routes its quantizer by its `vq`
 key (`vq_from_kwargs`): the residual VQ, none (`vq: ''`) or shape-gain
 (`ops/shape_gain.py`); only the residual VQ has the Euclidean codebooks
 token coding and the streaming drivers need. `forward` is the
@@ -17,7 +17,8 @@ version for CPU tensors only. The streaming drivers take
 `encode_stream` / `decode_stream` take `megakernel=True` to run each step
 as one launch of the encoder / decoder frame kernel; it is off by default,
 as in the JAX package, whose automatic choice never selects it, and a
-codec the frame kernels do not cover (EnCodec, Avocodo) raises for it.
+codec the frame kernels do not cover (EnCodec, Avocodo, AudioDec) raises
+for it.
 """
 
 from __future__ import annotations
@@ -100,8 +101,8 @@ def _require_frame_kernels(codec) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class CodecModel:
-    """A codec (HILCodec, EnCodec or Avocodo) + its quantizer, bound to
-    the device it runs on."""
+    """A codec (HILCodec, EnCodec, Avocodo or AudioDec) + its quantizer,
+    bound to the device it runs on."""
     codec: Any
     vq: Any
     device: torch.device

@@ -1,8 +1,10 @@
 """EnCodec family: SEANet encoder / decoder with an LSTM bottleneck.
 
 Counterpart of `hilcodec_tpu/models/encodec.py` (SLSTM, EncodecResnetBlock,
-EncodecEncoder, EncodecDecoder, EncodecModel); its transformer LM, the
-entropy model of the range coder, is not ported yet. Same single-spec,
+EncodecEncoder, EncodecDecoder, EncodecModel) and of its token LM, the
+entropy model of the range coder (`sin_embedding`,
+StreamingTransformerEncoder, LMModel; see the section at the end). Same
+single-spec,
 dual-mode design as `models/hilcodec.py`: `apply` for training, `step` for
 streaming with the JAX flat cache list (the conv caches `[B, C, len]`
 and each LSTM's (h, c) pair `[layers, B, H]`, batch on axis 1).
@@ -490,3 +492,166 @@ class EncodecModel:
         """Deployment fold: weight norm removed from every conv; the LSTM
         weights pass through."""
         return R.fold_tree(params, self.norm)
+
+
+# ---------------------------------------------------------------------------
+# Streaming transformer LM: the entropy model over RVQ tokens
+# ---------------------------------------------------------------------------
+#
+# Plain products and a masked softmax, as the JAX LM (plain jnp, no Pallas
+# kernel): `torch.matmul` on the card, so that both coder directions run
+# one known program.
+
+def sin_embedding(positions: torch.Tensor, dim: int,
+                  max_period: float = 10000.0) -> torch.Tensor:
+    """[..., T] positions -> [..., T, dim]: cos then sin of position /
+    max_period ** (i / (half - 1))."""
+    half = dim // 2
+    adim = torch.arange(half, device=positions.device,
+                        dtype=torch.float32)[None, None, :]
+    phase = positions[..., None].float() / (max_period
+                                            ** (adim / (half - 1)))
+    return torch.cat([torch.cos(phase), torch.sin(phase)], dim=-1)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def _layer_norm(x, g, b, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingTransformerEncoder:
+    """Past-context-masked causal self-attention carrying its states:
+    post-norm layers (torch's norm_first=False); each layer's state is its
+    last `past_context` input frames."""
+    dim: int
+    hidden_scale: float = 4.0
+    num_heads: int = 8
+    num_layers: int = 5
+    max_period: float = 10000.0
+    past_context: int = 1000
+    gelu: bool = True
+    norm_in: bool = True
+
+    def init(self, gen: torch.Generator) -> Params:
+        C, H = self.dim, int(self.dim * self.hidden_scale)
+
+        def uniform(shape, s):
+            return torch.empty(shape).uniform_(-s, s, generator=gen)
+
+        layers = []
+        for _ in range(self.num_layers):
+            s = 1.0 / math.sqrt(C)
+            layers.append({
+                "in_proj_w": uniform((3 * C, C), s),
+                "in_proj_b": torch.zeros(3 * C),
+                "out_proj_w": uniform((C, C), s),
+                "out_proj_b": torch.zeros(C),
+                "lin1_w": uniform((H, C), s), "lin1_b": torch.zeros(H),
+                "lin2_w": uniform((C, H), 1.0 / math.sqrt(H)),
+                "lin2_b": torch.zeros(C),
+                "norm1_g": torch.ones(C), "norm1_b": torch.zeros(C),
+                "norm2_g": torch.ones(C), "norm2_b": torch.zeros(C)})
+        p: Params = {"layers": layers}
+        if self.norm_in:
+            p["norm_in_g"] = torch.ones(C)
+            p["norm_in_b"] = torch.zeros(C)
+        return p
+
+    def _attn(self, p: Params, x: torch.Tensor,
+              x_past: torch.Tensor) -> torch.Tensor:
+        B, T, C = x.shape
+        H = self.num_heads
+        hd = C // H
+        keys_in = torch.cat([x_past, x], dim=1)
+        Tk = keys_in.shape[1]
+        w, b = p["in_proj_w"], p["in_proj_b"]
+        q = x @ w[:C].T + b[:C]
+        k = keys_in @ w[C:2 * C].T + b[C:2 * C]
+        v = keys_in @ w[2 * C:].T + b[2 * C:]
+        q = q.reshape(B, T, H, hd).transpose(1, 2)
+        k = k.reshape(B, Tk, H, hd).transpose(1, 2)
+        v = v.reshape(B, Tk, H, hd).transpose(1, 2)
+        scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
+        hist = x_past.shape[1]
+        delta = (torch.arange(hist, T + hist, device=x.device)[:, None]
+                 - torch.arange(Tk, device=x.device)[None, :])
+        valid = (delta >= 0) & (delta <= self.past_context)
+        scores = scores.masked_fill(~valid[None, None], float("-inf"))
+        out = torch.softmax(scores, dim=-1) @ v
+        out = out.transpose(1, 2).reshape(B, T, C)
+        return out @ p["out_proj_w"].T + p["out_proj_b"]
+
+    def apply(self, params: Params, x: torch.Tensor,
+              states: Optional[List[torch.Tensor]] = None, offset: int = 0
+              ) -> Tuple[torch.Tensor, List[torch.Tensor], int]:
+        """x: [B, T, C] -> (y, new_states, new_offset). With no states the
+        first frame attends one zero state frame at position -1."""
+        B, T, C = x.shape
+        if states is None:
+            states = [x.new_zeros((B, 1, C))
+                      for _ in range(self.num_layers)]
+        pos = torch.arange(T, device=x.device)[None, :] + offset
+        if self.norm_in:
+            x = _layer_norm(x, params["norm_in_g"], params["norm_in_b"])
+        x = x + sin_embedding(pos, C, self.max_period).to(x.dtype)
+        new_states = []
+        for p, st in zip(params["layers"], states):
+            sa_input = x
+            x = _layer_norm(x + self._attn(p, x, st), p["norm1_g"],
+                            p["norm1_b"])
+            h = x @ p["lin1_w"].T + p["lin1_b"]
+            h = _gelu(h) if self.gelu else torch.relu(h)
+            x = _layer_norm(x + h @ p["lin2_w"].T + p["lin2_b"],
+                            p["norm2_g"], p["norm2_b"])
+            new_states.append(torch.cat([st, sa_input],
+                                        dim=1)[:, -self.past_context:])
+        return x, new_states, offset + T
+
+
+@dataclasses.dataclass(frozen=True)
+class LMModel:
+    """Entropy model over RVQ tokens: summed per-codebook embeddings ->
+    streaming transformer -> per-codebook softmax heads."""
+    n_q: int = 32
+    card: int = 1024
+    dim: int = 200
+    num_heads: int = 8
+    num_layers: int = 5
+    past_context: int = 1000
+
+    def __post_init__(self):
+        object.__setattr__(self, "transformer", StreamingTransformerEncoder(
+            dim=self.dim, num_heads=self.num_heads,
+            num_layers=self.num_layers, past_context=self.past_context))
+
+    def init(self, gen: torch.Generator, device="cpu") -> Params:
+        """Seeded init: draws on the CPU from `gen`, then moves to device."""
+        s = 1.0 / math.sqrt(self.dim)
+        emb = torch.randn((self.n_q, self.card + 1, self.dim), generator=gen)
+        lin_w = torch.empty((self.n_q, self.card, self.dim)).uniform_(
+            -s, s, generator=gen)
+        return params_to({"emb": emb, "lin_w": lin_w,
+                          "lin_b": torch.zeros((self.n_q, self.card)),
+                          "transformer": self.transformer.init(gen)}, device)
+
+    def apply(self, params: Params, indices: torch.Tensor,
+              states: Optional[List[torch.Tensor]] = None, offset: int = 0):
+        """indices: [B, n_q, T] (1 + codebook index; 0 = missing) ->
+        (probs [B, card, n_q, T], states, offset)."""
+        B, K, T = indices.shape
+        emb = params["emb"]
+        x = emb.new_zeros((B, T, self.dim))
+        for k in range(K):
+            x = x + emb[k][indices[:, k].long()]
+        out, states, offset = self.transformer.apply(
+            params["transformer"], x, states, offset)
+        logits = torch.einsum("btc,kvc->bvkt", out, params["lin_w"]) \
+            + params["lin_b"].T[None, :, :, None]
+        return torch.softmax(logits, dim=1), states, offset

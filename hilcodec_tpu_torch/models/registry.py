@@ -1,18 +1,18 @@
 """Model registry: config `model:` name -> CodecModel builder.
 
-The HILCodec, EnCodec and Avocodo families are ported; audiodec raises
-and points at the roadmap."""
+Every family of the JAX package: HILCodec, EnCodec, Avocodo and
+AudioDec."""
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from .. import resolve_device
+from .audiodec import AudioDec
 from .avocodo import AvocodoModel
 from .codec import CodecModel, residual_vq
 from .encodec import EncodecModel
 
-_NOT_PORTED = ("audiodec",)
 # the JAX registry's default stack when an EnCodec config has no vq_kwargs
 _ENCODEC_VQ = {"dim": 128, "codebook_size": 1024, "num_quantizers": 32}
 
@@ -33,6 +33,15 @@ def build_avocodo(model_kwargs: Dict[str, Any], device=None) -> CodecModel:
     return CodecModel(codec, residual_vq(vq_kwargs), resolve_device(device))
 
 
+def build_audiodec(model_kwargs: Dict[str, Any], device=None) -> CodecModel:
+    """AudioDec with its residual VQ; an AudioDec config carries no
+    vq_kwargs, so the VQ's dim is the codec's code_dim."""
+    codec = AudioDec.from_config(model_kwargs)
+    vq_kwargs = dict(model_kwargs.get("vq_kwargs") or {})
+    vq_kwargs.setdefault("dim", codec.code_dim)
+    return CodecModel(codec, residual_vq(vq_kwargs), resolve_device(device))
+
+
 def build_codec_model(name: str, model_kwargs: Dict[str, Any],
                       device=None) -> CodecModel:
     """Streaming/deployment surface of family `name` on `device` (CUDA
@@ -43,8 +52,6 @@ def build_codec_model(name: str, model_kwargs: Dict[str, Any],
         return build_encodec(model_kwargs, device=device)
     if name == "avocodo":
         return build_avocodo(model_kwargs, device=device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported to hilcodec_tpu_torch yet; "
-            "see ROADMAP.md (Queue 1, other families)")
+    if name == "audiodec":
+        return build_audiodec(model_kwargs, device=device)
     raise ValueError(f"unknown model {name!r}")

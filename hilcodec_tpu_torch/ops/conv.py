@@ -21,7 +21,8 @@ row's result depend on the batch, so that a stream gives the same bits
 alone as inside a slot batch: oneDNN picks its kernel for a dense
 convolution (groups 1, several input channels; pointwise, strided or
 transposed too) by batch size. For CPU tensors `conv1d` computes a dense
-conv as `row_matmul` over its k-tap windows, and `conv_transpose1d` a
+conv as `row_matmul` over its k-tap windows (a grouped conv of several
+channels a group, AudioDec's, group by group), and `conv_transpose1d` a
 dense transposed conv as one `row_matmul` followed by an overlap-add of
 its k taps. Depthwise and 1-input-channel convolutions are
 batch-invariant as they are. On the card every
@@ -87,6 +88,13 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         x = F.pad(x, padding)
     w = w.to(x.dtype)
     b = None if b is None else b.to(x.dtype)
+    if x.device.type == "cpu" and groups > 1 and w.shape[1] > 1:
+        # a grouped conv of several channels a group: each group as a
+        # dense conv of its own
+        bs = [None] * groups if b is None else b.chunk(groups)
+        return torch.cat([conv1d(xg, wg, bg, stride, dilation)
+                          for xg, wg, bg in zip(x.chunk(groups, dim=1),
+                                                w.chunk(groups), bs)], dim=1)
     if x.device.type == "cpu" and groups == 1 and w.shape[1] > 1:
         # rows of k-tap windows, [B, t, Cin*k] @ [Cin*k, Cout]
         cout, cin, k = w.shape

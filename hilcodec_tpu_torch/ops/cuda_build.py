@@ -1,11 +1,15 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each `csrc/<name>.cu` exports a plain C interface and is compiled on first
-use into `_build/lib<name>-<hash>.so` inside the package (listed in
-`.gitignore`), keyed by a hash of the source and the flags, so that a
-checkout builds from its own sources and never reuses a stale library.
-Nothing here runs at import time: the CPU tests import every module, and
-`nvcc` is needed only when a kernel is first launched.
+Each `csrc/<name>.cu` exports a plain C interface and is compiled with
+nvcc on first use into `_build/lib<name>-<hash>.so` inside the package
+(listed in `.gitignore`), keyed by a hash of the source and the flags, so
+that a checkout builds from its own sources and never reuses a stale
+library. A host library, `csrc/<name>.cpp` (the range coder), is built
+the same way with g++ (`build_host` / `load_host`). Each build writes a
+temporary file named by its process and renames it into place, so
+concurrent builds of one source never share a file. Nothing here runs at
+import time: the CPU tests import every module, and `nvcc` is needed only
+when a kernel is first launched.
 """
 
 from __future__ import annotations
@@ -42,40 +46,73 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def _library_path(name: str, ext: str, flags) -> Path:
+    src = (CSRC_DIR / f"{name}{ext}").read_bytes()
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
-def build(name: str) -> Tuple[Path, float, str]:
-    """Compile `csrc/<name>.cu` unless this exact source is built already.
-
-    Returns (library path, build seconds, nvcc's ptxas report; the report
-    is kept beside the library, so a cached build returns it too)."""
-    out = library_path(name)
-    report = out.with_suffix(".ptxas.txt")
+def _compile(name: str, ext: str, compiler: str, flags
+             ) -> Tuple[Path, float, str]:
+    out = _library_path(name, ext, flags)
+    report = out.with_suffix(".log")      # the compiler's messages
     if out.exists():
         return out, 0.0, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [compiler, *flags, "-o", str(tmp), str(CSRC_DIR / f"{name}{ext}")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     dt = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc "
-                           f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed for "
+                           f"{name}{ext} (rc {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
     report.write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees old or new
     return out, dt, proc.stderr
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built on first use."""
+def build(name: str) -> Tuple[Path, float, str]:
+    """Compile `csrc/<name>.cu` unless this exact source is built already.
+
+    Returns (library path, build seconds, nvcc's messages with ptxas's
+    report; they are kept beside the library, so a cached build returns
+    them too)."""
+    return _compile(name, ".cu", nvcc(), NVCC_FLAGS)
+
+
+def gxx() -> str:
+    """Path of the host C++ compiler: $CXX, else g++ on PATH."""
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("g++ not found (set CXX): the native range coder "
+                           "is built from csrc/rangecoder.cpp")
+    return found
+
+
+def build_host(name: str) -> Tuple[Path, float, str]:
+    """Compile the host library `csrc/<name>.cpp` with g++, as `build`."""
+    return _compile(name, ".cpp", gxx(), GXX_FLAGS)
+
+
+def _load(name: str, compile_fn) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path, _, _ = build(name)
+            path, _, _ = compile_fn(name)
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    return _load(name, build)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cpp`, built on first use."""
+    return _load(name, build_host)

@@ -124,9 +124,14 @@ def build_trainer(hps, device=None):
     """The trainer of a config on `device` (CUDA when None, which must
     then be available): the balancer GAN trainer for HILCodec and EnCodec
     and for Avocodo under `train.trainer: hilcodec` (its generator with
-    the full-rate head only), Avocodo's own trainer otherwise.
+    the full-rate head only), Avocodo's own trainer otherwise; AudioDec
+    is deploy-only and raises the JAX loop's ValueError.
     `train.fbd_lowering` may name either JAX lowering; both are the
     filter-bank discriminator's one conv1d lowering here."""
+    if hps.get("model", "hilcodec") == "audiodec":
+        raise ValueError(
+            "model: audiodec is deploy-only (the reference has no audiodec "
+            "training wrapper; weights are imported — SURVEY.md §2.8)")
     hp = hps.train
     lowering = hp.get("fbd_lowering", "conv2d")
     if lowering not in ("conv2d", "bands1d"):

@@ -184,7 +184,11 @@ def load_deploy_npz(path: str, model, device="cpu") -> Tuple[Params, dict]:
     vq_shape = (model.vq.num_quantizers, model.vq.codebook_size, model.vq.dim)
     if books.shape != vq_shape:
         raise ValueError(f"codebooks {books.shape} != model {vq_shape}")
-    params = from_flat(flat, model.param_template(folded=is_folded(flat)),
-                       device)
+    template = model.param_template(folded=is_folded(flat))
+    if "codebooks" in template:
+        # AudioDec's params hold a `codebooks` leaf of their own, under the
+        # name the file gives the quantizer's codebooks
+        flat["codebooks"] = books
+    params = from_flat(flat, template, device)
     embed = torch.from_numpy(np.array(books, np.float32)).to(device)
     return params, {"embed": embed}

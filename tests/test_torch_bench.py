@@ -65,9 +65,29 @@ def test_unported_options_point_at_roadmap(flag):
 
 
 def test_unported_model_exits_with_roadmap_pointer():
-    out = _run(["--model", "audiodec"])
+    """--model audiodec, the last family ported, parses and names its
+    metric with bench.py's `_audiodec` suffix; a model bench.py does not
+    have still exits with the roadmap pointer."""
+    args = bench.parse_args(["4", "--model", "audiodec"])
+    assert args.model == "audiodec"
+    res = bench.stream_bench(*_tiny_audiodec(), bench.Args(
+        streams=1, seconds=0.002, device="cpu", model="audiodec"))
+    assert res["metric"] == "torch_streaming_encdec_rtf_audiodec"
+    out = _run(["--model", "bogus"])
     assert out.returncode != 0 and "ROADMAP.md" in out.stderr
     assert out.stdout == ""
+
+
+def _tiny_audiodec():
+    from hilcodec_tpu_torch.models.audiodec import AudioDec
+    model = CodecModel(
+        AudioDec(encode_channels=4, enc_ratios=(2, 4), enc_strides=(3, 4),
+                 code_dim=8, codebook_num=2, codebook_size=16,
+                 decode_channels=16, dec_strides=(4, 3),
+                 resblock_kernel_size=5, resblock_dilations=(1, 3)),
+        ResidualVQ(dim=8, codebook_size=16, num_quantizers=2,
+                   kmeans_init=False), torch.device("cpu"))
+    return (model,) + bench.bench_params(model)
 
 
 def test_encodec_model_parses_and_names_its_metric(monkeypatch, capsys):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to fall back to the CPU, and the families it has not
-ported yet say so."""
+entry points refuse to fall back to the CPU, and every family builds
+(AudioDec, the last one ported, deploy-only as in JAX)."""
 
 import os
 import shutil
@@ -36,10 +36,18 @@ def test_port_and_chip_smoke_import_no_jax():
         "m.startswith('hilcodec_tpu.'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 51, names\n"
+        "assert len(names) >= 59, names\n"
         "assert {'hilcodec_tpu_torch.models.avocodo', "
         "'hilcodec_tpu_torch.train.step_avocodo', "
-        "'hilcodec_tpu_torch.ops.shape_gain'} <= set(names)\n")
+        "'hilcodec_tpu_torch.ops.shape_gain', "
+        "'hilcodec_tpu_torch.models.audiodec', "
+        "'hilcodec_tpu_torch.ops.entropy_coding', "
+        "'hilcodec_tpu_torch.ops.native_coder', "
+        "'hilcodec_tpu_torch.utils.bitstream', "
+        "'hilcodec_tpu_torch.serve.entropy_live', "
+        "'hilcodec_tpu_torch.train.lm', "
+        "'hilcodec_tpu_torch.train_lm', "
+        "'hilcodec_tpu_torch.entropy_code'} <= set(names)\n")
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr[-2000:]
 
@@ -122,14 +130,19 @@ def test_config_builds_flagship_shapes():
 
 @pytest.mark.parametrize("entry", ["registry", "trainer"])
 def test_unported_families_point_at_roadmap(entry):
-    """audiodec, the family still to port, through the registry and the
-    trainer's builder."""
+    """audiodec, the last family ported, through the registry (the
+    full-width AudioDec with RVQ 8 x 1024 x 64) and `build_trainer`
+    (deploy-only: the JAX loop's own ValueError)."""
+    from hilcodec_tpu_torch.models.audiodec import AudioDec
     from hilcodec_tpu_torch.models.registry import build_codec_model
     from hilcodec_tpu_torch.train.loop import build_trainer
     from hilcodec_tpu_torch.utils.hparams import HParams
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "registry":
-            build_codec_model("audiodec", {}, device="cpu")
-        else:
+    if entry == "registry":
+        m = build_codec_model("audiodec", {}, device="cpu")
+        assert isinstance(m.codec, AudioDec) and m.hop_length == 300
+        assert (m.vq.num_quantizers, m.vq.codebook_size, m.vq.dim) == (
+            8, 1024, 64)
+    else:
+        with pytest.raises(ValueError, match="deploy-only"):
             build_trainer(HParams(model="audiodec", model_kwargs={},
                                   train={}), "cpu")

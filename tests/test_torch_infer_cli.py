@@ -1,7 +1,7 @@
 """`python -m hilcodec_tpu_torch.infer` against the root `infer.py` on one
 JAX checkpoint and one wav at a tiny width, on the CPU, at 1 and 2 frames
 a step: the int16 tokens [n_q, 1, T] exactly, the written wav within one
-PCM step; and the options the port refuses."""
+PCM step; --profile; and live entropy streaming (--entropy-stream)."""
 
 import os
 import runpy
@@ -14,6 +14,7 @@ import yaml
 from hilcodec_tpu.utils.hparams import HParams as JaxHParams
 
 from hilcodec_tpu_torch import infer
+from hilcodec_tpu_torch.utils.bitstream import read_hilstream, token_crc32
 from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
 
 from test_torch_train_loop import ROOT, cut_down
@@ -68,6 +69,16 @@ def test_infer_cli_profile_and_refusals(setup, capsys):
                 "--device", "cpu", "--profile", str(tmp / "prof")])
     assert os.path.getsize(tmp / "prof" / "trace.json") > 0
     assert np.load(tmp / "rand_quantized.npy").shape == (3, 1, 30)
-    for extra in (["--entropy-stream", "lm.npz"], ["--lm-arch", "1,1,1,1"]):
-        with pytest.raises(SystemExit, match="Queue 1 item 3"):
-            infer.main(["-c", cfg, "-i", inp, "--device", "cpu"] + extra)
+    # live entropy streaming on the LM's seeded init: the live decoder
+    # gives back every frame, and the .hilstream holds the bytes
+    capsys.readouterr()
+    infer.main(["-c", cfg, "-i", inp, "-o", str(tmp / "live"), "--device",
+                "cpu", "--entropy-stream", "random", "--lm-arch",
+                "16,4,1,8"])
+    out = capsys.readouterr().out
+    assert "live entropy stream: roundtrip_exact=True" in out
+    assert "per-frame coder latency: p50" in out
+    meta, payload = read_hilstream(str(tmp / "live.hilstream"))
+    assert (meta["n_q"], meta["card"], meta["seg_tokens"]) == (3, 32, 8)
+    tok = np.load(tmp / "live_quantized.npy")[:, 0].T.astype(np.int64)
+    assert meta["token_crc"] == token_crc32(tok) and len(payload) > 0
