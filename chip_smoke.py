@@ -125,7 +125,21 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      3 s of seeded speech (roundtrip exact, kbps, coder latency p50 / p99
      against the 13.33 ms frame, the decoder's lag); the live stepper's
      probabilities against the batched LM's; and, reported only, the
-     card's live stream decoded on the CPU.
+     card's live stream decoded on the CPU;
+ 14. the rest of the single-card training options on the flagship
+     trainer (temporary yamls derived from configs/hilcodec_speech.yaml):
+     (a) MPD (periods 2-11) and MSD (three scales, spectral / weight /
+     weight norm) with MelGradLoss, each family's losses weighted 1.1:
+     one step on the card against the CPU at batch 2 with
+     configs/avocodo_music.yaml's SBD added, its gradients applied by
+     AdamP, SGDP and RAdam on both devices (7(b)'s bars, the spectral-norm
+     u buffers to 1e-4), then the step timed at batch 24 as 7(a); (b)
+     compute_dtype bfloat16, remat all, and both, each timed at batch 24
+     as 7(a) beside 7(a)'s f32 numbers (the RVQ kernel twice a step under
+     remat), masters / optimizer / VQ state f32 and finite, the bf16
+     path's tokens against the plain cascade at M = 1800, bf16 losses
+     within 0.1 of f32's and remat's gradients within 2e-3 of none's from
+     one state and batch.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -180,8 +194,9 @@ ODD_CHANNELS = (6, 10)
 # the tensor's scale.
 FRAME_TOL = 5e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, TF32
-# on the tensor cores, HBM3
+# and bf16 on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 # TF32 products per f32-accurate product in the frame kernels' GEMMs
@@ -1019,7 +1034,10 @@ TRAIN_BATCH = 24              # the flagship config's batch
 TRAIN_SEGMENT = 24000         # its segment (1 s at 24 kHz)
 TRAIN_WARMUP = 3
 TRAIN_TIMED = 10
-TRAIN_PROFILED = 2            # steps in the profiled window
+# steps in the profiled window: 1 (it was 2, and 3 before that), a cut
+# of depth for the run's time: reading the trace of one step of
+# 40,000-56,000 kernels takes ~25 s
+TRAIN_PROFILED = 1
 PARITY_BATCH = 2
 # card against the port's CPU step (the bars of tests/test_train_parity.py)
 LOSS_RTOL = 1e-4
@@ -1035,6 +1053,8 @@ GRAD_FLOOR_REL = 1e-3
 # weight spreads that over its channel. So the optimizer is held on the
 # same gradients, and the whole step's deltas and ties are reported
 GATE_MARGIN = 1e-3
+# spectral-norm u buffers after one power iteration, card against CPU
+U_RTOL = 1e-4
 CLI_STEPS = 3
 CLI_BATCH = 4
 
@@ -1099,12 +1119,16 @@ def train_bound(trainer, state, wav_t, draws):
 
 
 def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
-                     timed=TRAIN_TIMED, rvq_steps=True):
+                     timed=TRAIN_TIMED, rvq_steps=True, rvq_per_step=1,
+                     flops_of=None):
     """(a) The trainer of `config` (the flagship's by default) at `batch`
     (24) x 24000 on the card: k-means init, warm-up steps, `timed` timed
     steps (CUDA events per step), throughput, peak memory, a
     torch.profiler window and the FLOP bound. With rvq_steps the RVQ
-    kernel must launch once a step, else never (shape-gain, no VQ)."""
+    kernel must launch `rvq_per_step` times a step (2 when the generator
+    forward is rematerialized), else never (shape-gain, no VQ).
+    `flops_of` (tag, result) reuses another run's FLOP count where the
+    step has the same shapes (bf16 against f32), instead of counting."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1176,7 +1200,7 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
            if k != "num_replaces" and not np.all(np.isfinite(v))]
     if bad or any(h["finite"] != 1.0 for h in host):
         raise AssertionError(f"non-finite training metrics: {bad}")
-    if launches != (timed if rvq_steps else 0):
+    if launches != (timed * rvq_per_step if rvq_steps else 0):
         raise AssertionError(f"rvq_cascade launched {launches} times in "
                              f"{timed} steps")
     replaces = sum(np.asarray(h["num_replaces"]) for h in host)
@@ -1206,28 +1230,46 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.device_time_total for e in dev) / TRAIN_PROFILED / 1e3
     n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
-    log(f"[{tag}] torch.profiler over {TRAIN_PROFILED} steps: {dev_ms:.1f} "
+    log(f"[{tag}] torch.profiler over {TRAIN_PROFILED} step(s) (a window "
+        f"cut from 2 to 1 step for the run's time): {dev_ms:.1f} "
         f"ms of device kernels and {n_kernels:.0f} kernels a step; device "
         f"busy {dev_ms / p50 * 100:.0f}% of the p50 step (the window and "
         f"its trace took {time.perf_counter() - t0:.1f} s)")
-    for e in sorted(dev, key=lambda e: -e.device_time_total)[:10]:
+    top = sorted(dev, key=lambda e: -e.device_time_total)[:10]
+    for e in top:
         log(f"[{tag}]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f} ms "
             f"x{e.count / TRAIN_PROFILED:.0f}/step  {e.key[:90]}")
 
     wav_t = batches[0]
     draws = trainer.sample_draws(step_generator(SEED, 0), wav_t.shape)
-    flops, bound_ms, by_op = train_bound(trainer, state, wav_t, draws)
+    if flops_of is None:
+        flops, bound_ms, by_op = train_bound(trainer, state, wav_t, draws)
+        counted = f"dropout depth {draws.n}"
+    else:
+        flops, by_op = flops_of[1]["flops"], flops_of[1]["by_op"]
+        bound_ms = flops / PEAK_F32_FLOPS * 1e3
+        counted = f"the same shapes as [{flops_of[0]}], its count"
+    # the bound at the peak of the step's convolution dtype
+    bf16 = getattr(trainer, "compute_dtype", torch.float32) == torch.bfloat16
+    peak_flops, dtype = ((PEAK_BF16_FLOPS, "bf16") if bf16
+                         else (PEAK_F32_FLOPS, "f32"))
+    bound_ms *= PEAK_F32_FLOPS / peak_flops
     log(f"[{tag}] step FLOPs (conv + matmul shapes, forward and backward, "
-        f"dropout depth {draws.n}): {flops / 1e12:.2f} TFLOP ("
+        f"{counted}): {flops / 1e12:.2f} TFLOP ("
         + ", ".join(f"{k} {v / 1e12:.2f}" for k, v in sorted(
             by_op.items(), key=lambda kv: -kv[1]))
-        + f"); f32 bound {bound_ms:.1f} ms at "
-        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, "
+        + f"); {dtype} bound {bound_ms:.1f} ms at "
+        f"{peak_flops / 1e12:.0f} TFLOP/s, "
         f"{bound_ms / p50 * 100:.1f}% of the p50 step")
     return trainer, state, dict(p50=p50, p90=p90, launches=launches,
                                 bound_ms=bound_ms, peak=peak,
                                 audio_s=audio_s / wall,
-                                busy=dev_ms / p50, vq_moved=moved,
+                                busy=dev_ms / p50, kernels=n_kernels,
+                                flops=flops, by_op=by_op,
+                                top=[(e.key[:60], e.device_time_total
+                                      / TRAIN_PROFILED / 1e3)
+                                     for e in top[:3]],
+                                vq_moved=moved,
                                 replaces=np.asarray(replaces))
 
 
@@ -1240,13 +1282,150 @@ def _rel_l2(a, b, floor=1e-30):
     return float((a - b).norm() / max(float(b.norm()), floor))
 
 
-def phase_train_parity(config=CONFIG, tag="train-parity"):
+def _gate_of(opt):
+    """An object whose gate_report gives the optimizer's projection gate
+    (AdamP's own, SGDP's through an AdamP of its delta), or None."""
+    from hilcodec_tpu_torch.train.optim import AdamP, SGDP
+    if isinstance(opt, AdamP):
+        return opt
+    if isinstance(opt, SGDP):
+        return AdamP(delta=opt.delta, eps=opt.eps)
+    return None
+
+
+def _radam_rectified_errs(opt_c, opt_g, grads, params, side, tag):
+    """RAdam's update on both devices from a state at step 5 (the next
+    update is step 6: with beta2 0.9 rho_t first passes 5 there, so the
+    rectified adaptive branch runs), its moments seeded from the
+    gradients: [(rel L2, 'rectified <leaf>')], logged."""
+    import torch
+    from hilcodec_tpu_torch.train.optim import RAdamState
+    from hilcodec_tpu_torch.utils.params import flatten, tree_map
+
+    rng = np.random.default_rng(SEED + 80)
+    m = tree_map(lambda g: g * float(rng.uniform(0.5, 1.5)), grads)
+    v = tree_map(lambda g: g * g * float(rng.uniform(0.5, 2.0)) + 1e-12,
+                 grads)
+    st = RAdamState(torch.tensor(5, dtype=torch.int32), m, v)
+    b2 = opt_c.betas[1]
+    rho_inf = 2.0 / (1.0 - b2) - 1.0
+    rho = rho_inf - 2.0 * 6 * b2 ** 6 / (1.0 - b2 ** 6)
+    if not rho > 5.0:
+        raise AssertionError(f"RAdam step 6 is not rectified (rho {rho})")
+    upd_c, _ = opt_c.update(grads, st, params, torch.full((), 1e-4))
+    upd_g, _ = opt_g.update(*(tree_map(lambda x: x.cuda(), t)
+                              for t in (grads, st, params)),
+                            torch.full((), 1e-4, device="cuda"))
+    fu_c, fu_g = flatten(upd_c), flatten(upd_g)
+    errs = sorted(((_rel_l2(fu_g[k], fu_c[k]), f"rectified {k}")
+                   for k in fu_c), reverse=True)
+    log(f"[{tag}] RAdam {side.upper()} update at step 6 (rho_t {rho:.3g} > 5, the "
+        f"rectified branch) from the CPU's gradients and seeded moments: "
+        f"worst rel L2 card vs CPU {errs[0][0]:.2g} ({errs[0][1]})")
+    return errs
+
+
+def _parity_updates(cpu_tr, card_tr, cpu_state, aux_c, aux_g, new_c, new_g,
+                    tag, opt_name):
+    """Per side: the gradients' worst per-leaf error, the optimizer's
+    projection gate on both gradients, its update on the CPU's gradients
+    on both devices, the whole step's deltas (reported) and the
+    spectral-norm u buffers after the step. RAdam's update is also held
+    on its rectified branch, which a fresh state does not reach."""
+    import torch
+    from hilcodec_tpu_torch.train.optim import RAdam
+    from hilcodec_tpu_torch.utils.params import flatten, tree_map, unflatten
+
+    flips = []
+    for side in ("g", "d"):
+        opt = getattr(cpu_tr, f"optim_{side}")
+        gate = _gate_of(opt)
+        g_c, g_g = aux_c[f"{side}_grads"], aux_g[f"{side}_grads"]
+        fc = flatten(g_c)
+        fg = {k: v.cpu() for k, v in flatten(g_g).items()}
+        floor = GRAD_FLOOR_REL * float(torch.sqrt(sum(
+            torch.sum(v.double() ** 2) for v in fc.values())))
+        errs = sorted(((_rel_l2(fg[k], fc[k], floor), k) for k in fc),
+                      reverse=True)
+        params = getattr(cpu_state, f"params_{side}")
+        gate_c = gate.gate_report(g_c, params) if gate else {}
+        gate_g = gate.gate_report(unflatten(fg), params) if gate else {}
+        skip = set()
+        for path, (ch, ch_t, ly, ly_t) in gate_c.items():
+            h = gate_g[path]
+            if (ch < ch_t, ly < ly_t) == (h[0] < h[1], h[2] < h[3]):
+                continue
+            near = all(abs(x - t) <= GATE_MARGIN * t
+                       for x, t in ((ch, ch_t), (h[0], h[1])))
+            near = near or all(abs(x - t) <= GATE_MARGIN * t
+                               for x, t in ((ly, ly_t), (h[2], h[3])))
+            if not near:
+                raise AssertionError(f"{opt_name} gate differs at {path} "
+                                     f"away from its threshold")
+            flips.append(path)
+            skip.add(path.replace("/", "."))
+        # the card's optimizer on the CPU's gradients against the CPU's
+        opt_g = getattr(card_tr, f"optim_{side}")
+        upd_c, _ = opt.update(g_c, getattr(cpu_state, f"opt_{side}"),
+                              params, torch.full((), 1e-4))
+        upd_g, _ = opt_g.update(
+            tree_map(lambda x: x.cuda(), g_c),
+            tree_map(lambda x: x.cuda(), getattr(cpu_state, f"opt_{side}")),
+            tree_map(lambda x: x.cuda(), params),
+            torch.full((), 1e-4, device="cuda"))
+        fu_c, fu_g = flatten(upd_c), flatten(upd_g)
+        uerrs = sorted(((_rel_l2(fu_g[k], fu_c[k]), k) for k in fu_c
+                        if k not in skip), reverse=True)
+        if isinstance(opt, RAdam):
+            uerrs = sorted(uerrs + _radam_rectified_errs(
+                opt, opt_g, g_c, params, side, tag), reverse=True)
+        # the whole step: deltas where both gradients give one sign
+        p0 = flatten(params)
+        p_c = flatten(getattr(new_c, f"params_{side}"))
+        p_g = flatten(getattr(new_g, f"params_{side}"))
+        derrs, ties, worst_tie = [], 0, (0.0, "")
+        for k in p0:
+            if k in skip or k.endswith(".u"):
+                continue
+            keep = (fg[k] - fc[k]).abs() < fc[k].abs()
+            ties += int((~keep).sum())
+            worst_tie = max(worst_tie, (1.0 - float(keep.float().mean()), k))
+            derrs.append((_rel_l2((p_g[k].cpu() - p0[k])[keep],
+                                  (p_c[k] - p0[k])[keep]), k))
+        derrs.sort(reverse=True)
+        u_errs = sorted(((_rel_l2(p_g[k], p_c[k]), k) for k in p0
+                         if k.endswith(".u")), reverse=True)
+        log(f"[{tag}] {opt_name}, {side.upper()}: {len(fc)} leaves, worst "
+            f"grad rel L2 {errs[0][0]:.2g} ({errs[0][1]}; floor "
+            f"{GRAD_FLOOR_REL} of the global norm), worst update from the "
+            f"same gradients rel L2 {uerrs[0][0]:.2g} ({uerrs[0][1]}); bars "
+            f"{GRAD_RTOL}. The whole step's deltas: worst rel L2 "
+            f"{derrs[0][0]:.2g} ({derrs[0][1]}) over the elements whose "
+            f"gradient sign both sides give; sign ties {ties} elements, at "
+            f"most {worst_tie[0]:.2%} of a leaf ({worst_tie[1]}); reported"
+            + (f". Spectral-norm u after the step: {len(u_errs)} buffers, "
+               f"worst rel L2 {u_errs[0][0]:.2g} ({u_errs[0][1]}); bar "
+               f"{U_RTOL}" if u_errs else ""))
+        if errs[0][0] > GRAD_RTOL or uerrs[0][0] > GRAD_RTOL:
+            raise AssertionError(f"card vs CPU {side}: grads {errs[:3]}, "
+                                 f"{opt_name} updates {uerrs[:3]}")
+        if u_errs and u_errs[0][0] > U_RTOL:
+            raise AssertionError(f"card vs CPU u buffers {u_errs[:3]}")
+    log(f"[{tag}] {opt_name} gate flips within {GATE_MARGIN} of the "
+        f"threshold (reported, not failures): {flips or 'none'}")
+
+
+def phase_train_parity(config=CONFIG, tag="train-parity", optimizers=None):
     """(b) One step of the port on the card against the same step of the
     port on the CPU: full width, batch 2, the same state (codebooks
-    k-means-initialized on the CPU on another batch), batch and draws."""
+    k-means-initialized on the CPU on another batch), batch and draws.
+    With `optimizers` [(name, kwargs)], the gradients of that one step are
+    applied by each optimizer in turn on both devices, each update held
+    as the config's own."""
     import torch
     from hilcodec_tpu_torch.ops.shape_gain import ShapeGainVQBridge
     from hilcodec_tpu_torch.train.loop import build_trainer, step_generator
+    from hilcodec_tpu_torch.train.optim import make_optimizer
     from hilcodec_tpu_torch.train.step import to_device
     from hilcodec_tpu_torch.utils.params import flatten, tree_map, unflatten
 
@@ -1268,10 +1447,8 @@ def phase_train_parity(config=CONFIG, tag="train-parity"):
     draws = cpu_tr.sample_draws(step_generator(SEED, 0), wav.shape)
     card_draws = draws.to("cuda")
     aux_c = cpu_tr.compute_grads(cpu_state, torch.from_numpy(wav), draws)
-    new_c, _ = cpu_tr.apply_grads(cpu_state, aux_c)
     wav_g = to_device(wav, card_tr.device)
     aux_g = card_tr.compute_grads(card_state, wav_g, card_draws)
-    new_g, _ = card_tr.apply_grads(card_state, aux_g)
     again = card_tr.compute_grads(card_state, wav_g, card_draws)
     torch.cuda.synchronize()
     log(f"[{tag}] {type(cpu_tr).__name__}: one step at batch "
@@ -1308,72 +1485,19 @@ def phase_train_parity(config=CONFIG, tag="train-parity"):
     if replaces[0] != replaces[1]:
         raise AssertionError(f"card vs CPU replace counts {replaces}")
 
-    flips = []
-    for side in ("g", "d"):
-        opt = getattr(cpu_tr, f"optim_{side}")
-        g_c, g_g = aux_c[f"{side}_grads"], aux_g[f"{side}_grads"]
-        fc = flatten(g_c)
-        fg = {k: v.cpu() for k, v in flatten(g_g).items()}
-        floor = GRAD_FLOOR_REL * float(torch.sqrt(sum(
-            torch.sum(v.double() ** 2) for v in fc.values())))
-        errs = sorted(((_rel_l2(fg[k], fc[k], floor), k) for k in fc),
-                      reverse=True)
-        params = getattr(cpu_state, f"params_{side}")
-        gate_c = opt.gate_report(g_c, params)
-        gate_g = opt.gate_report(unflatten(fg), params)
-        skip = set()
-        for path, (ch, ch_t, ly, ly_t) in gate_c.items():
-            h = gate_g[path]
-            if (ch < ch_t, ly < ly_t) == (h[0] < h[1], h[2] < h[3]):
-                continue
-            near = all(abs(x - t) <= GATE_MARGIN * t
-                       for x, t in ((ch, ch_t), (h[0], h[1])))
-            near = near or all(abs(x - t) <= GATE_MARGIN * t
-                               for x, t in ((ly, ly_t), (h[2], h[3])))
-            if not near:
-                raise AssertionError(f"AdamP gate differs at {path} away "
-                                     f"from its threshold")
-            flips.append(path)
-            skip.add(path.replace("/", "."))
-        # the card's AdamP on the CPU's gradients against the CPU's update
-        opt_g = getattr(card_tr, f"optim_{side}")
-        upd_c, _ = opt.update(g_c, getattr(cpu_state, f"opt_{side}"),
-                              params, torch.full((), 1e-4))
-        upd_g, _ = opt_g.update(
-            tree_map(lambda x: x.cuda(), g_c),
-            tree_map(lambda x: x.cuda(), getattr(cpu_state, f"opt_{side}")),
-            tree_map(lambda x: x.cuda(), params),
-            torch.full((), 1e-4, device="cuda"))
-        fu_c, fu_g = flatten(upd_c), flatten(upd_g)
-        uerrs = sorted(((_rel_l2(fu_g[k], fu_c[k]), k) for k in fu_c
-                        if k not in skip), reverse=True)
-        # the whole step: deltas where both gradients give one sign
-        p0 = flatten(params)
-        p_c = flatten(getattr(new_c, f"params_{side}"))
-        p_g = flatten(getattr(new_g, f"params_{side}"))
-        derrs, ties, worst_tie = [], 0, (0.0, "")
-        for k in p0:
-            if k in skip:
-                continue
-            keep = (fg[k] - fc[k]).abs() < fc[k].abs()
-            ties += int((~keep).sum())
-            worst_tie = max(worst_tie, (1.0 - float(keep.float().mean()), k))
-            derrs.append((_rel_l2((p_g[k].cpu() - p0[k])[keep],
-                                  (p_c[k] - p0[k])[keep]), k))
-        derrs.sort(reverse=True)
-        log(f"[{tag}] {side.upper()}: {len(fc)} leaves, worst grad "
-            f"rel L2 {errs[0][0]:.2g} ({errs[0][1]}; floor "
-            f"{GRAD_FLOOR_REL} of the global norm), worst AdamP update from "
-            f"the same gradients rel L2 {uerrs[0][0]:.2g} ({uerrs[0][1]}); "
-            f"bars {GRAD_RTOL}. The whole step's AdamP deltas: worst rel L2 "
-            f"{derrs[0][0]:.2g} ({derrs[0][1]}) over the elements whose "
-            f"gradient sign both sides give; sign ties {ties} elements, at "
-            f"most {worst_tie[0]:.2%} of a leaf ({worst_tie[1]}); reported")
-        if errs[0][0] > GRAD_RTOL or uerrs[0][0] > GRAD_RTOL:
-            raise AssertionError(f"card vs CPU {side}: grads {errs[:3]}, "
-                                 f"AdamP updates {uerrs[:3]}")
-    log(f"[{tag}] AdamP gate flips within {GATE_MARGIN} of the "
-        f"threshold (reported, not failures): {flips or 'none'}")
+    for name, kw in optimizers or [("its optimizer", None)]:
+        tr_c, tr_g, st_c = cpu_tr, card_tr, cpu_state
+        if kw is not None:
+            opt, lr = make_optimizer(name, dict(kw))
+            tr_c, tr_g = (dataclasses.replace(t, optim_g=opt, optim_d=opt,
+                                              lr_g=lr, lr_d=lr)
+                          for t in (cpu_tr, card_tr))
+            st_c = cpu_state._replace(opt_g=opt.init(cpu_state.params_g),
+                                      opt_d=opt.init(cpu_state.params_d))
+        st_g = tree_map(lambda x: x.to("cuda"), st_c)
+        _parity_updates(tr_c, tr_g, st_c, aux_c, aux_g,
+                        tr_c.apply_grads(st_c, aux_c)[0],
+                        tr_g.apply_grads(st_g, aux_g)[0], tag, name)
     rerun = max(_rel_l2(a, b) for a, b in zip(
         flatten(again["g_grads"]).values(),
         flatten(aux_g["g_grads"]).values()))
@@ -2643,6 +2767,239 @@ def phase_entropy(card):
     return dict(launches=launches)
 
 
+# --------------------------------------------------------------- phase 14
+
+# each HiFi-GAN family's adversarial and feature-matching losses take the
+# weight the flagship's families have (configs/hilcodec_speech.yaml): the
+# balancer combines only the keys it has weights for
+HIFIGAN_WEIGHT = 1.1
+# the card-against-CPU step's gradients applied by each optimizer
+PHASE14_OPTIMIZERS = (
+    ("AdamP", {"lr": 5e-4, "betas": [0.5, 0.9], "weight_decay": 1e-5}),
+    ("SGDP", {"lr": 5e-4, "momentum": 0.9, "nesterov": True,
+              "weight_decay": 1e-5}),
+    ("RAdam", {"lr": 5e-4, "betas": [0.5, 0.9], "weight_decay": 1e-5}))
+# bf16 losses against f32's from the same state and batch: the JAX
+# package's own bar (tests/test_train_step.py)
+BF16_LOSS_RTOL = 0.1
+
+
+def phase14_configs(tmp):
+    """Temporary yamls derived from configs/hilcodec_speech.yaml: the
+    HiFi-GAN step (MPD and MSD at the JAX defaults, MelGradLoss), the same
+    with configs/avocodo_music.yaml's SBD (its `h` form written out as the
+    aggregate's SBD arguments), and the precision / memory modes."""
+    import copy
+    import yaml
+    with open(CONFIG) as f:
+        base = yaml.safe_load(f)
+    with open(AVOCODO_CONFIG) as f:
+        h = yaml.safe_load(f)["disc_kwargs"]["sbd_kwargs"]["h"]
+
+    def with_families(cfg, kwargs):
+        cfg = copy.deepcopy(cfg)
+        for name, kw in kwargs.items():
+            cfg["disc_kwargs"][f"{name}_kwargs"] = kw
+            for key in (f"{name}_g", f"{name}_fm"):
+                cfg["train"]["balancer_kwargs"]["weights"][key] = \
+                    HIFIGAN_WEIGHT
+        return cfg
+
+    def pqmf(v):
+        return dict(zip(("subbands", "taps", "cutoff_freq", "beta"), v))
+
+    hifigan = with_families(base, {"mpd": {"use": True},
+                                   "msd": {"use": True}})
+    hifigan["train"]["mel_grad_function"] = True
+    sbd = with_families(hifigan, {"sbd": {
+        "use": True, "channels": h["sbd_filters"],
+        "strides": h["sbd_strides"], "kernel_sizes": h["sbd_kernel_sizes"],
+        "dilations": h["sbd_dilations"],
+        "band_ranges": h["sbd_band_ranges"],
+        "transpose": h["sbd_transpose"],
+        "pqmf_kwargs": pqmf(h["pqmf_config"]["sbd"]),
+        "f_pqmf_kwargs": pqmf(h["pqmf_config"]["fsbd"]),
+        "segment_size": h["segment_size"]}})
+    modes = {"bf16": {"compute_dtype": "bfloat16"},
+             "remat": {"remat": "all"},
+             "bf16+remat": {"compute_dtype": "bfloat16", "remat": "all"}}
+    out = {"hifigan": hifigan, "hifigan+sbd": sbd}
+    for name, train in modes.items():
+        out[name] = copy.deepcopy(base)
+        out[name]["train"].update(train)
+    paths = {}
+    for name, cfg in out.items():
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            yaml.safe_dump(cfg, f)
+    return paths
+
+
+def phase_hifigan(card, paths):
+    """(a) MPD + MSD (+ SBD) with MelGradLoss in the flagship trainer: one
+    step on the card against the CPU at batch 2, its gradients applied by
+    AdamP, SGDP and RAdam; then the HiFi-GAN step timed at batch 24."""
+    import torch
+    phase_train_parity(paths["hifigan+sbd"], tag="hifigan-parity",
+                       optimizers=PHASE14_OPTIMIZERS)
+    trainer, state, res = phase_train_full(card, paths["hifigan"],
+                                           tag="hifigan-train")
+    log(f"[hifigan-train] discriminators {list(trainer.disc.discs)}, mel "
+        f"loss {type(trainer.mel_loss).__name__}; f32 at batch "
+        f"{TRAIN_BATCH} {'fits' if res['peak'] < 80e9 else 'does not fit'}"
+        f" in the card's memory ({res['peak'] / 2**30:.2f} GiB peak of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f})")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def _all_f32(state, what):
+    """Every floating leaf of the masters, the optimizer states, the VQ
+    state and the balancer in f32 and finite."""
+    import torch
+    from hilcodec_tpu_torch.utils.params import flatten
+    for part in ("params_g", "params_d", "opt_g", "opt_d", "vq_state",
+                 "balancer"):
+        for k, v in flatten(getattr(state, part)).items():
+            if v.is_floating_point() and (v.dtype != torch.float32
+                                          or not bool(v.isfinite().all())):
+                raise AssertionError(f"{what}: {part}/{k} is {v.dtype} "
+                                     f"or not finite")
+
+
+def phase_bf16_tokens(trainer, state, depths=(2, 4, 8)):
+    """The bf16 encoder's latents, cast to f32 as the training forward
+    casts them, through the RVQ kernel and the plain cascade at M = 1800:
+    the same tokens."""
+    import torch
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+
+    wav = speech_batch(np.random.default_rng(SEED + 60), TRAIN_BATCH,
+                       TRAIN_SEGMENT)
+    books = state.vq_state["embed"]
+    with torch.no_grad():
+        z = trainer.model.codec.encoder.apply(
+            trainer._cast(state.params_g["encoder"]),
+            torch.from_numpy(wav).cuda().to(torch.bfloat16))
+        if z.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 encoder returned {z.dtype}")
+        x = z.float().transpose(1, 2).contiguous()
+        for n in depths:
+            rep = rvq.token_parity_report(
+                rvq_kernel.quantize_cuda(x, books, n),
+                rvq.quantize(x, books, n), x, books)
+            log(f"[bf16-tokens] encoder in {z.dtype}, latents cast to "
+                f"{x.dtype}, M={x.shape[0] * x.shape[1]} n={n}: mismatches "
+                f"{rep['mismatches']} (ties {rep['ties']}, not ties "
+                f"{rep['not_ties']})")
+            if rep["mismatches"]:
+                raise AssertionError(f"bf16 path tokens differ at n={n}: "
+                                     f"{rep}")
+
+
+def phase_precision(card, paths, f32):
+    """(b) The flagship in bf16, with remat all, and both, timed at batch
+    24 beside phase 7(a)'s f32 numbers (`f32`) from this run; bf16 losses
+    against f32's from one state and batch; remat's gradients against
+    none's; K1's tokens on the bf16 path."""
+    import torch
+    from hilcodec_tpu_torch.train import step as step_module
+    from hilcodec_tpu_torch.train.loop import step_generator
+    from hilcodec_tpu_torch.train.step import to_device
+    from hilcodec_tpu_torch.utils.params import flatten
+
+    rows = {"f32 (phase 7a)": f32}
+    # bf16 runs the shapes of its f32 counterpart: its FLOPs are not
+    # counted again
+    same_shapes = {"bf16": "f32 (phase 7a)", "bf16+remat": "remat"}
+    for mode in ("bf16", "remat", "bf16+remat"):
+        twin = same_shapes.get(mode)
+        trainer, state, res = phase_train_full(
+            card, paths[mode], tag=f"{mode}-train",
+            rvq_per_step=2 if "remat" in mode else 1,
+            flops_of=(twin, rows[twin]) if twin else None)
+        _all_f32(state, mode)
+        if mode == "bf16":
+            phase_bf16_tokens(trainer, state)
+        rows[mode] = res
+        del trainer, state
+        torch.cuda.empty_cache()
+
+    # one state and batch through f32, bf16 and remat: all
+    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 70)
+    wav = to_device(speech_batch(np.random.default_rng(SEED + 71),
+                                 TRAIN_BATCH, TRAIN_SEGMENT), trainer.device)
+    draws = trainer.sample_draws(step_generator(SEED, 7), wav.shape)
+    ref = trainer.compute_grads(state, wav, draws)
+    # the dtypes the discriminators' logits and feature maps come out in,
+    # before the step casts them back to f32 for the losses
+    seen, to_f32 = set(), step_module._f32
+
+    def recording(tree):
+        seen.update(v.dtype for v in flatten(tree).values())
+        return to_f32(tree)
+    step_module._f32 = recording
+    try:
+        half = dataclasses.replace(trainer, compute_dtype=torch.bfloat16
+                                   ).compute_grads(state, wav, draws)
+    finally:
+        step_module._f32 = to_f32
+    log(f"[precision] bf16 step: discriminator logits and feature maps "
+        f"in {sorted(map(str, seen))}")
+    if seen != {torch.bfloat16}:
+        raise AssertionError(f"bf16 discriminators gave {seen}")
+    gaps = {k: _rel(half["losses"][k], v) for k, v in ref["losses"].items()}
+    log(f"[precision] bf16 against f32, same state, batch {TRAIN_BATCH} and "
+        f"draws (depth {draws.n}): loss relative gaps " + ", ".join(
+            f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (bar {BF16_LOSS_RTOL}); d_loss {float(half['d_loss']):.5g} "
+        f"against {float(ref['d_loss']):.5g}")
+    bad = {k: v for k, v in gaps.items() if not v <= BF16_LOSS_RTOL}
+    if bad or not bool(half["finite"]):
+        raise AssertionError(f"bf16 losses off f32's by {bad} or non-"
+                             f"finite balancer")
+    del half
+    remat = dataclasses.replace(trainer, remat="all").compute_grads(
+        state, wav, draws)
+    for side in ("g_grads", "d_grads"):
+        fa, fb = flatten(remat[side]), flatten(ref[side])
+        floor = GRAD_FLOOR_REL * float(torch.sqrt(sum(
+            torch.sum(v.double() ** 2) for v in fb.values())))
+        worst = max((_rel_l2(fa[k], fb[k], floor), k) for k in fb)
+        log(f"[precision] remat all against none, {side}: worst per-leaf "
+            f"rel L2 {worst[0]:.2g} ({worst[1]}; floor {GRAD_FLOOR_REL} of "
+            f"the global norm), bar {GRAD_RTOL}")
+        if worst[0] > GRAD_RTOL:
+            raise AssertionError(f"remat gradients differ: {worst}")
+    del trainer, state, ref, remat
+    torch.cuda.empty_cache()
+    log(f"[precision] {card}, batch {TRAIN_BATCH} x {TRAIN_SEGMENT}:")
+    for mode, r in rows.items():
+        top = r["top"][0] if r["top"] else ("none", 0.0)
+        log(f"[precision]   {mode}: step p50 / p90 {r['p50']:.1f} / "
+            f"{r['p90']:.1f} ms, {r['audio_s']:.1f} audio s/s, peak "
+            f"{r['peak'] / 2**30:.2f} GiB, busy {r['busy'] * 100:.0f}%, "
+            f"{r['kernels']:.0f} kernels a step, bound {r['bound_ms']:.1f} "
+            f"ms, RVQ launches {r['launches']}; top kernel {top[0]} "
+            f"{top[1]:.1f} ms a step")
+    return rows
+
+
+def phase_train_options(card, f32):
+    """Phase 14: the HiFi-GAN discriminators and the precision and memory
+    modes of the flagship trainer."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase14_configs(tmp)
+        hifigan = phase_hifigan(card, paths)
+        log(f"[time] phase 14 (a) done at "
+            f"{time.perf_counter() - t0:.1f} s into the phase")
+        rows = phase_precision(card, paths, f32)
+    return dict(hifigan=hifigan, **rows)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2694,6 +3051,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     entropy = phase_entropy(line)
     done(13)
+    torch.cuda.empty_cache()
+    options = phase_train_options(line, train)
+    done(14)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -2710,6 +3070,10 @@ def main() -> int:
         "launches_tools_path": tools["launches"],
         "launches_encodec_bench": encodec["bench_launches"],
         "launches_lm_path": entropy["launches"],
+        "launches_hifigan_train_path": options["hifigan"]["launches"],
+        "launches_bf16_train_path": options["bf16"]["launches"],
+        "launches_remat_train_path": options["remat"]["launches"],
+        "launches_bf16_remat_train_path": options["bf16+remat"]["launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]

@@ -1,8 +1,9 @@
 """GAN discriminators (`hilcodec_tpu/models/discriminators.py`): the
-multi-filter-bank (MFBD) and multi-STFT (MSTFTD) discriminators and the
-`Discriminators` aggregate of the flagship trainer, and the sub-band
-discriminator (SBD, with its MDC blocks) that Avocodo's discriminators
-use (`models/avocodo.py`).
+multi-filter-bank (MFBD), multi-STFT (MSTFTD), HiFi-GAN's multi-period
+(MPD) and multi-scale (MSD) discriminators, the sub-band discriminator
+(SBD, with its MDC blocks, which Avocodo's discriminators use too,
+`models/avocodo.py`), and the `Discriminators` aggregate of the flagship
+trainer.
 
 Each `apply(params, x)` maps x [B, 1, T] to (logits, feature maps);
 `Discriminators.apply` gathers them into the `{name: [tensors]}` dicts the
@@ -10,9 +11,8 @@ losses consume. The filter-bank discriminator runs one lowering: every conv
 of its stack has a 1-tap height, so the PQMF bands fold into the batch and
 the stack runs as conv1d (the JAX package's `bands1d`, the same math as its
 `conv2d`). Weights keep the JAX shapes ([Cout, Cin, 1, k]). Init is torch's
-default conv init under weight norm, drawn from a `torch.Generator`.
-MPD and MSD are not ported yet, nor SBD as a member of the aggregate (no
-shipped config selects it there).
+default conv init under weight norm (MSD's first scale: spectral norm,
+whose `u` buffer is drawn too), from a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def get_padding(kernel_size: int, dilation: int = 1) -> int:
 def _init_conv(gen: torch.Generator, shape: Tuple[int, ...], norm: str,
                with_bias: bool = True) -> Params:
     w, b = R.torch_default_conv_init(gen, shape, with_bias)
-    return R.init_reparam(w, norm, bias=b)
+    return R.init_reparam(w, norm, bias=b, gen=gen)
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +247,155 @@ class MultiFilterBankDiscriminator:
         return _gather(self.discs, params["discs"], x)
 
 
+
+# ---------------------------------------------------------------------------
+# Multi-period discriminator
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PeriodDiscriminator:
+    """HiFi-GAN's period discriminator: x reflect-padded to a multiple of
+    `period`, folded to [B, c, T/period, period], (k, 1) conv2ds strided
+    along time. As in JAX, the four strided convs pad by
+    get_padding(5) whatever `kernel_size` is, the fifth by 2."""
+    period: int
+    kernel_size: int = 5
+    stride: int = 3
+    norm: str = R.WEIGHT_NORM
+
+    _CHANNELS = (32, 128, 512, 1024, 1024)
+
+    def init(self, gen: torch.Generator) -> Params:
+        convs, c_in = [], 1
+        for ch in self._CHANNELS:
+            convs.append(_init_conv(gen, (ch, c_in, self.kernel_size, 1),
+                                    self.norm))
+            c_in = ch
+        return {"convs": convs,
+                "post": _init_conv(gen, (1, c_in, 3, 1), self.norm)}
+
+    def apply(self, params: Params, x: torch.Tensor):
+        B, c, t = x.shape
+        if t % self.period:
+            pad = self.period - t % self.period
+            x = F.pad(x, (0, pad), mode="reflect")
+            t += pad
+        z = x.reshape(B, c, t // self.period, self.period)
+        fmap = []
+        for i, p in enumerate(params["convs"]):
+            s, pad_h = (self.stride, get_padding(5)) if i < 4 else (1, 2)
+            z = F.leaky_relu(F.conv2d(z, R.compute_weight(p, self.norm),
+                                      p.get("b"), (s, 1), (pad_h, 0)),
+                             LRELU_SLOPE)
+            fmap.append(z)
+        p = params["post"]
+        z = F.conv2d(z, R.compute_weight(p, self.norm), p.get("b"), 1,
+                     (1, 0))
+        fmap.append(z)
+        return z.reshape(B, -1), fmap
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiPeriodDiscriminator:
+    kernel_size: int = 5
+    stride: int = 3
+    norm: str = R.WEIGHT_NORM
+    periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
+
+    def __post_init__(self):
+        object.__setattr__(self, "discs", tuple(
+            PeriodDiscriminator(p, self.kernel_size, self.stride, self.norm)
+            for p in self.periods))
+
+    def init(self, gen: torch.Generator) -> Params:
+        return {"discs": [d.init(gen) for d in self.discs]}
+
+    def apply(self, params: Params, x: torch.Tensor):
+        return _gather(self.discs, params["discs"], x)
+
+
+# ---------------------------------------------------------------------------
+# Multi-scale discriminator
+# ---------------------------------------------------------------------------
+
+_MSD_SPECS = (
+    # (cout, k, stride, groups, pad)
+    (128, 15, 1, 1, 7),
+    (128, 41, 2, 4, 20),
+    (256, 41, 2, 16, 20),
+    (512, 41, 4, 16, 20),
+    (1024, 41, 4, 16, 20),
+    (1024, 41, 1, 16, 20),
+    (1024, 5, 1, 1, 2),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleDiscriminator:
+    norm: str = R.WEIGHT_NORM
+
+    def init(self, gen: torch.Generator) -> Params:
+        convs, c_in = [], 1
+        for ch, k, _s, g, _p in _MSD_SPECS:
+            convs.append(_init_conv(gen, (ch, c_in // g, k), self.norm))
+            c_in = ch
+        return {"convs": convs,
+                "post": _init_conv(gen, (1, c_in, 3), self.norm)}
+
+    def apply(self, params: Params, x: torch.Tensor):
+        fmap, z = [], x
+        for p, (_ch, _k, s, g, pad) in zip(params["convs"], _MSD_SPECS):
+            z = F.leaky_relu(F.conv1d(z, R.compute_weight(p, self.norm),
+                                      p.get("b"), s, pad, groups=g),
+                             LRELU_SLOPE)
+            fmap.append(z)
+        p = params["post"]
+        z = F.conv1d(z, R.compute_weight(p, self.norm), p.get("b"),
+                     padding=1)
+        fmap.append(z)
+        return z.reshape(z.shape[0], -1), fmap
+
+
+def _avg_pool1d(x: torch.Tensor) -> torch.Tensor:
+    """torch AvgPool1d(4, 2, padding=1): the pads count in the mean."""
+    return F.avg_pool1d(x, 4, 2, padding=1, count_include_pad=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiScaleDiscriminator:
+    """Three scale discriminators on x, x pooled once and twice (or, with
+    use_pqmf, the first band of a 2- and a 4-band PQMF); norm None gives
+    the scales [spectral, weight, weight] norm."""
+    norm: Optional[str] = None
+    use_pqmf: bool = False
+
+    def __post_init__(self):
+        norms = ([R.SPECTRAL_NORM, R.WEIGHT_NORM, R.WEIGHT_NORM]
+                 if self.norm is None else [self.norm] * 3)
+        object.__setattr__(self, "discs",
+                           tuple(ScaleDiscriminator(n) for n in norms))
+
+    def init(self, gen: torch.Generator) -> Params:
+        return {"discs": [d.init(gen) for d in self.discs]}
+
+    def _pool(self, x: torch.Tensor, idx: int) -> torch.Tensor:
+        if idx == 0:
+            return x
+        if self.use_pqmf:
+            return P.analysis(x, 2 ** idx, 256, 0.25 / 2 ** (idx - 1),
+                              8.0)[:, :1]
+        y = _avg_pool1d(x)
+        return _avg_pool1d(y) if idx == 2 else y
+
+    def apply(self, params: Params, x: torch.Tensor):
+        logits, fmaps = [], []
+        for i, (d, p) in enumerate(zip(self.discs, params["discs"])):
+            lg, fm = d.apply(p, self._pool(x, i))
+            logits.append(lg)
+            fmaps.extend(fm)
+        return logits, fmaps
+
+
 # ---------------------------------------------------------------------------
 # Sub-band discriminator
 # ---------------------------------------------------------------------------
@@ -396,8 +545,8 @@ def _clean(kwargs: Dict[str, Any]) -> Dict[str, Any]:
 
 @dataclasses.dataclass(frozen=True)
 class Discriminators:
-    """The families switched on by their `use:` flags, keyed mfbd and
-    mstftd (mpd, msd and sbd are not ported yet)."""
+    """The families switched on by their `use:` flags, keyed mfbd, mpd,
+    msd, mstftd and sbd, in that order."""
     mfbd_kwargs: Optional[Dict[str, Any]] = None
     mpd_kwargs: Optional[Dict[str, Any]] = None
     msd_kwargs: Optional[Dict[str, Any]] = None
@@ -408,18 +557,12 @@ class Discriminators:
         discs = {}
         for name, kw, cls in (
                 ("mfbd", self.mfbd_kwargs, MultiFilterBankDiscriminator),
-                ("mpd", self.mpd_kwargs, None),
-                ("msd", self.msd_kwargs, None),
+                ("mpd", self.mpd_kwargs, MultiPeriodDiscriminator),
+                ("msd", self.msd_kwargs, MultiScaleDiscriminator),
                 ("mstftd", self.mstftd_kwargs, MultiSTFTDiscriminator),
-                ("sbd", self.sbd_kwargs, None)):
-            if not (kw and kw.get("use", False)):
-                continue
-            if cls is None:
-                raise NotImplementedError(
-                    f"discriminator {name!r} is not ported to "
-                    "hilcodec_tpu_torch yet; see ROADMAP.md (Queue 1, what "
-                    "is left of the training stack)")
-            discs[name] = cls(**_clean(kw))
+                ("sbd", self.sbd_kwargs, SBD)):
+            if kw and kw.get("use", False):
+                discs[name] = cls(**_clean(kw))
         object.__setattr__(self, "discs", discs)
 
     def init(self, gen: torch.Generator, device="cpu") -> Params:

@@ -1,6 +1,6 @@
-"""Training losses (`hilcodec_tpu/models/losses.py`): multi-resolution mel,
-Avocodo's single-resolution HiFi-GAN mel, GAN hinge / least-squares,
-feature matching.
+"""Training losses (`hilcodec_tpu/models/losses.py`): multi-resolution mel
+(and its memory-lean `MelGradLoss`), Avocodo's single-resolution HiFi-GAN
+mel, GAN hinge / least-squares, feature matching.
 
 The GAN and feature losses take dicts `{name: [tensors]}` of the
 discriminators' logits or feature maps and return the loss dict keyed
@@ -95,6 +95,80 @@ class MelLoss:
             loss = loss + torch.mean(torch.square(diff)) \
                 + torch.mean(torch.abs(diff))
         return {"freq": loss}
+
+
+class _MelGradTerm(torch.autograd.Function):
+    """L1 + MSE of the clipped log-mels, whose gradient with respect to
+    the generated side's *linear* mel is (log_mel_g - log_mel_r) / numel
+    times the incoming gradient (JAX's `custom_vjp`): deliberately not the
+    gradient through the log."""
+
+    @staticmethod
+    def forward(ctx, mel_g, mel_r, clip_val):
+        lg = torch.log(torch.clamp(mel_g, min=clip_val))
+        lr = torch.log(torch.clamp(mel_r, min=clip_val))
+        d = lg - lr
+        ctx.save_for_backward(d / d.numel())
+        return torch.mean(torch.abs(d)) + torch.mean(torch.square(d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (g,) = ctx.saved_tensors
+        return grad * g, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class MelGradLoss:
+    """The memory-lean multi-resolution mel loss: MelLoss's value on a
+    magnitude (power-1) STFT and a Slaney-scale mel basis (`mel_norm`
+    configurable, none by default), with `_MelGradTerm`'s gradient.
+    n_fft = 2^5 .. 2^10, hop n_fft/4, the loss STFT (`ops/stft.stft`,
+    center=False); the real side takes no gradient."""
+    sampling_rate: int
+    clip_val: float = 1.0e-5
+    n_mels_max: int = 80
+    mel_norm: Optional[str] = None
+
+    def __post_init__(self):
+        transforms = []
+        for i in range(5, 11):
+            s = 2 ** i
+            n_mels = int(min(
+                self.n_mels_max,
+                2 * mel_scale_htk(self.sampling_rate / 2)
+                / mel_scale_htk(self.sampling_rate / s) - 1,
+                s // 4))
+            transforms.append((s, s // 4, n_mels))
+        object.__setattr__(self, "transforms", tuple(transforms))
+
+    def basis(self, n_fft: int, n_mels: int,
+              device: torch.device) -> torch.Tensor:
+        return _mel_grad_basis(self.sampling_rate, n_fft, n_mels,
+                               self.mel_norm, device)
+
+    def _mel(self, x: torch.Tensor, n_fft: int, hop: int,
+             basis: torch.Tensor) -> torch.Tensor:
+        mag = S.stft(x, n_fft, hop, n_fft, center=False, magnitude=True)
+        return torch.einsum("mf,bfl->bml", basis.to(mag.dtype), mag)
+
+    def __call__(self, wav_g: torch.Tensor,
+                 wav_r: torch.Tensor) -> LossOutput:
+        loss = torch.zeros((), device=wav_g.device)
+        for n_fft, hop, n_mels in self.transforms:
+            basis = self.basis(n_fft, n_mels, wav_g.device)
+            mel_g = self._mel(wav_g, n_fft, hop, basis)
+            with torch.no_grad():
+                mel_r = self._mel(wav_r, n_fft, hop, basis)
+            loss = loss + _MelGradTerm.apply(mel_g, mel_r, self.clip_val)
+        return {"freq": loss}
+
+
+@lru_cache(maxsize=None)
+def _mel_grad_basis(sr: int, n_fft: int, n_mels: int, norm: Optional[str],
+                    device: torch.device) -> torch.Tensor:
+    """Slaney-scale mel basis with `norm`, once per device."""
+    return torch.from_numpy(M.mel_filterbank(
+        sr, n_fft, n_mels, norm=norm, htk=False)).to(device)
 
 
 @lru_cache(maxsize=None)

@@ -1,10 +1,15 @@
-"""Weight reparameterization: weight norm and its deployment-time fold.
+"""Weight reparameterization: weight norm, spectral norm and the
+deployment-time fold.
 
-Counterpart of `hilcodec_tpu/ops/reparam.py` for the norm the flagship
-configs use. A weight-normed conv holds `{v, g[, b]}` with
-w = g * v / ||v||, the L2 norm taken per index of axis 0 over all other
-axes (torch's `weight_norm(dim=0)`); `fold` turns it into `{w[, b]}`,
-and `fold_tree` every such dict of a whole tree.
+Counterpart of `hilcodec_tpu/ops/reparam.py`. A weight-normed conv holds
+`{v, g[, b]}` with w = g * v / ||v||, the L2 norm taken per index of axis
+0 over all other axes (torch's `weight_norm(dim=0)`). A spectrally normed
+conv holds `{v, u[, b]}` with w = v / sigma(v), sigma estimated by one
+power-iteration step on the 2-D reshape of v; `u` is a buffer (the
+running left singular vector), detached in `compute` and advanced only by
+`spectral_norm_power_iter`, which the train step calls once a step.
+`fold` turns either into `{w[, b]}`, and `fold_tree` every such dict of a
+whole tree. Weight standardization is not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 ParamDict = Dict[str, Any]
 
 WEIGHT_NORM = "weight_norm"
+SPECTRAL_NORM = "spectral_norm"
 NONE = "none"
 
 
@@ -34,8 +40,37 @@ def weight_norm_compute(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (g.float() * v32 / norm).to(v.dtype)
 
 
+def spectral_norm_init(w: torch.Tensor, gen: torch.Generator) -> ParamDict:
+    """{v, u}: u a unit N(0, 1) draw of w.shape[0] from `gen`."""
+    u = torch.randn(w.shape[0], generator=gen)
+    return {"v": w, "u": u / (torch.linalg.vector_norm(u) + 1e-12)}
+
+
+def spectral_norm_compute(v: torch.Tensor, u: torch.Tensor,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """v / sigma, sigma = u . (W vv) with vv = W^T u / ||W^T u||, W the
+    [d0, -1] view of v in f32; u takes no gradient."""
+    u = u.detach().float()
+    w2 = v.float().reshape(v.shape[0], -1)
+    vv = w2.T @ u
+    vv = vv / (torch.linalg.vector_norm(vv) + eps)
+    sigma = u @ (w2 @ vv)
+    return (v.float() / sigma).to(v.dtype)
+
+
+def spectral_norm_power_iter(v: torch.Tensor, u: torch.Tensor,
+                             eps: float = 1e-12) -> torch.Tensor:
+    """One power-iteration update of u, outside autograd."""
+    with torch.no_grad():
+        w2 = v.float().reshape(v.shape[0], -1)
+        vv = w2.T @ u
+        vv = vv / (torch.linalg.vector_norm(vv) + eps)
+        u_new = w2 @ vv
+        return u_new / (torch.linalg.vector_norm(u_new) + eps)
+
+
 def _check(norm: str) -> None:
-    if norm not in (WEIGHT_NORM, NONE):
+    if norm not in (WEIGHT_NORM, SPECTRAL_NORM, NONE):
         raise NotImplementedError(
             f"norm {norm!r} is not ported yet (see ROADMAP.md)")
 
@@ -54,10 +89,17 @@ def torch_default_conv_init(gen: torch.Generator, shape: Tuple[int, ...],
 
 
 def init_reparam(w: torch.Tensor, norm: str,
-                 bias: Optional[torch.Tensor] = None) -> ParamDict:
-    """Wrap an initialized raw weight into the parameterization for `norm`."""
+                 bias: Optional[torch.Tensor] = None,
+                 gen: Optional[torch.Generator] = None) -> ParamDict:
+    """Wrap an initialized raw weight into the parameterization for `norm`
+    (spectral norm draws its u from `gen`)."""
     _check(norm)
-    p = weight_norm_init(w) if norm == WEIGHT_NORM else {"w": w}
+    if norm == WEIGHT_NORM:
+        p = weight_norm_init(w)
+    elif norm == SPECTRAL_NORM:
+        p = spectral_norm_init(w, gen)
+    else:
+        p = {"w": w}
     if bias is not None:
         p["b"] = bias
     return p
@@ -68,6 +110,8 @@ def compute_weight(params: ParamDict, norm: str) -> torch.Tensor:
     if "w" in params:
         return params["w"]
     _check(norm)
+    if norm == SPECTRAL_NORM:
+        return spectral_norm_compute(params["v"], params["u"])
     return weight_norm_compute(params["v"], params["g"])
 
 
@@ -80,12 +124,13 @@ def fold(params: ParamDict, norm: str) -> ParamDict:
 
 
 def fold_tree(params, norm: str = WEIGHT_NORM):
-    """Fold every `{v, g[, b]}` conv dict of a param tree into `{w[, b]}`;
-    every other node (the EnCodec LSTM's weights, say) passes through."""
+    """Fold every `{v, g[, b]}` (or spectral `{v, u[, b]}`) conv dict of a
+    param tree into `{w[, b]}`; every other node (the EnCodec LSTM's
+    weights, say) passes through."""
     def walk(node):
         if isinstance(node, dict):
-            if "v" in node and "g" in node:
-                return fold(node, norm)
+            if "v" in node and ("g" in node or "u" in node):
+                return fold(node, SPECTRAL_NORM if "u" in node else norm)
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)

@@ -36,7 +36,7 @@ from ..models.avocodo import (AvocodoDiscriminators, AvocodoFullRate,
                               AvocodoModel)
 from ..models.codec import CodecModel, residual_vq
 from ..models.discriminators import Discriminators
-from ..models.losses import HifiGANMelLoss, MelLoss
+from ..models.losses import HifiGANMelLoss, MelGradLoss, MelLoss
 from ..models.registry import build_codec_model
 from ..ops import mel as M
 from ..ops import stft as ST
@@ -51,8 +51,7 @@ from .schedulers import ReduceLROnPlateau, make_scheduler
 from .step import Trainer, TrainState, metrics_to_host, to_device
 from .step_avocodo import AvocodoCodecModel, AvocodoTrainer
 
-_NOT_PORTED = "is not ported to hilcodec_tpu_torch yet; see ROADMAP.md " \
-    "(Queue 1, what is left of the training stack)"
+REMAT_SELECTORS = ("none", "disc", "gen", "mel", "all")
 
 
 def _plain(v):
@@ -67,7 +66,9 @@ def _mel_loss_from_config(hps):
                               d.n_fft, d.get("num_mels", 80), d.hop_size,
                               d.win_size)
     if hp.get("mel_grad_function", False):
-        raise NotImplementedError(f"train.mel_grad_function {_NOT_PORTED}")
+        return MelGradLoss(hps.data.sampling_rate,
+                           hps.data.get("clip_val", 1.0e-5),
+                           hp.get("n_mels_max", 80), hp.get("mel_norm"))
     return MelLoss(hps.data.sampling_rate, hps.data.get("clip_val", 1.0e-5),
                    no_zero=hp.get("no_zero_at_mel_filter", True),
                    n_mels_max=hp.get("n_mels_max", 80))
@@ -88,6 +89,20 @@ def _optim_sched_from_config(hps):
                             _plain(hp.get("clip_grad_kwargs", {})))
                if hp.get("clip_grad") else None)
     return optim_g, optim_d, lr_g, lr_d, sched, clipper
+
+
+def _compute_dtype_from_config(hp) -> torch.dtype:
+    """`train.compute_dtype` bfloat16 (or bf16, float16, fp16) selects
+    mixed precision in bf16, as does `fp16_g` / `fp16` when it is unset;
+    float32 / fp32 / unset the f32 step."""
+    name = hp.get("compute_dtype", None)
+    if name is None and (hp.get("fp16_g", False) or hp.get("fp16", False)):
+        name = "bfloat16"
+    if name in (None, "float32", "fp32"):
+        return torch.float32
+    if name in ("bfloat16", "bf16", "float16", "fp16"):
+        return torch.bfloat16
+    raise ValueError(f"unknown compute_dtype {name!r}")
 
 
 def build_avocodo_trainer(hps, device=None) -> AvocodoTrainer:
@@ -126,8 +141,11 @@ def build_trainer(hps, device=None):
     and for Avocodo under `train.trainer: hilcodec` (its generator with
     the full-rate head only), Avocodo's own trainer otherwise; AudioDec
     is deploy-only and raises the JAX loop's ValueError.
-    `train.fbd_lowering` may name either JAX lowering; both are the
-    filter-bank discriminator's one conv1d lowering here."""
+    `train.fbd_lowering` and `train.depthwise_lowering` may name either
+    JAX lowering; each is one conv lowering here (the JAX `shift` changes
+    its tracing only). `optimizer: SAM` raises: the step takes one
+    gradient a step, and SAM needs two, as in the JAX trainer, which
+    cannot drive it either."""
     if hps.get("model", "hilcodec") == "audiodec":
         raise ValueError(
             "model: audiodec is deploy-only (the reference has no audiodec "
@@ -136,18 +154,30 @@ def build_trainer(hps, device=None):
     lowering = hp.get("fbd_lowering", "conv2d")
     if lowering not in ("conv2d", "bands1d"):
         raise ValueError(f"unknown fbd lowering {lowering!r}")
-    if hp.get("compute_dtype") not in (None, "float32", "fp32") or \
-            hp.get("fp16_g", False) or hp.get("fp16", False):
-        raise NotImplementedError(f"a half-precision compute_dtype "
-                                  f"{_NOT_PORTED}")
-    if hp.get("remat", "none") != "none":
-        raise NotImplementedError(f"train.remat {_NOT_PORTED}")
+    lowering = hp.get("depthwise_lowering", "conv")
+    if lowering not in ("conv", "shift"):
+        raise ValueError(f"unknown depthwise lowering {lowering!r}")
     if hp.get("fam_mode", "separate") not in ("separate", "vmap", "joint"):
         raise ValueError(f"unknown fam_mode {hp.fam_mode!r}")
-    if hp.get("depthwise_lowering", "conv") != "conv":
-        raise NotImplementedError(f"train.depthwise_lowering {_NOT_PORTED}")
+    compute_dtype = _compute_dtype_from_config(hp)
+    remat = hp.get("remat", "none")
+    unknown = {r.strip() for r in remat.split(",")} - set(REMAT_SELECTORS)
+    if unknown:
+        raise ValueError(f"unknown remat selector(s) {sorted(unknown)}; "
+                         f"choose from {REMAT_SELECTORS}")
+    if hp.optimizer == "SAM":
+        raise ValueError(
+            "optimizer: SAM needs two gradients a step (first_step at the "
+            "params, second_step at the perturbed ones); the reference "
+            "Trainer takes one and calls optim.update, which SAM lacks, so "
+            "it cannot drive SAM: choose AdamP, SGDP, RAdam or Adam")
     name = hps.get("model", "hilcodec")
     if name == "avocodo" and hp.get("trainer", None) != "hilcodec":
+        if compute_dtype != torch.float32 or remat != "none":
+            raise ValueError(
+                "the Avocodo trainer has no compute_dtype or remat (the "
+                "reference's runs f32 without rematerialization); set "
+                "train.trainer: hilcodec or drop the option")
         return build_avocodo_trainer(hps, device)
     if name == "avocodo":
         mk = _plain(hps.model_kwargs)
@@ -170,7 +200,7 @@ def build_trainer(hps, device=None):
         lookahead=hp.get("lookahead", 0),
         disc_update_ratio=tuple(hp.get("disc_update_ratio", None)
                                 or (1, 1)),
-        clipper=clipper)
+        clipper=clipper, compute_dtype=compute_dtype, remat=remat)
 
 
 def step_generator(seed: int, iteration: int) -> torch.Generator:

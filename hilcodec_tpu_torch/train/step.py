@@ -8,18 +8,30 @@ discriminator's params and the real feature maps detached); the balancer
 combines them, and one backward pass of the generator takes the combined
 gradient for wav_g and `weight_others` for loss_vq. The discriminator's
 gradients come from a separate forward of its loss on the detached
-generated and the real waveform. AdamP updates both sides; the generator
-update is masked by the balancer's finite flag and the discriminator's by
-`do_d` (update ratio and its own non-finite guard), as selects on the
-device. Nothing in the step reads a value back to the host.
+generated and the real waveform. The optimizers update both sides; the
+generator update is masked by the balancer's finite flag and the
+discriminator's by `do_d` (update ratio and its own non-finite guard), as
+selects on the device; then every spectral-norm `{v, u}` pair of the
+discriminators takes one power iteration. Nothing in the step reads a
+value back to the host.
+
+`compute_dtype` bfloat16 is JAX's mixed precision: every floating leaf of
+both param trees and the input waveform are cast inside the graph (the
+gradients reach the f32 masters through the casts); the quantizer runs on
+f32 latents, wav_g, the mel loss and the balancer are f32, the
+discriminators' logits and feature maps go back to f32 before the losses,
+and the optimizer, VQ and balancer states stay f32. `remat` selects
+`torch.utils.checkpoint` (non-reentrant) around the generator forward
+(`gen`), the mel loss (`mel`), each family's G-side losses and the D-loss
+forward (`disc`), or all (`all`), comma-separable: the same values, the
+forwards run again in the backward (the generator's, and with it the RVQ
+kernel, once more a step).
 
 The JAX package's `fam_mode` "vmap" and "joint" restructure the same
 values for XLA; here every mode is this "separate" plumbing (build_trainer
-accepts the three names). Its `remat` (rematerialization, later
-`torch.utils.checkpoint`) and a bf16 `compute_dtype` are not ported yet:
-build_trainer raises for them. With `disc_update_ratio`
-r1 > 1 the discriminator's gradients are computed on every step and masked,
-where JAX skips the computation under `lax.cond`: the same values.
+accepts the three names). With `disc_update_ratio` r1 > 1 the
+discriminator's gradients are computed on every step and masked, where JAX
+skips the computation under `lax.cond`: the same values.
 """
 
 from __future__ import annotations
@@ -29,10 +41,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import losses as Lo
 from ..models.codec import CodecModel
 from ..models.discriminators import Discriminators
+from ..ops import reparam as R
 from ..ops.rvq import RVQDraws
 from ..utils.params import flatten, tree_map, unflatten
 from .balancer import Balancer
@@ -86,10 +100,31 @@ class Trainer:
     lookahead: int = 0
     disc_update_ratio: Tuple[int, int] = (1, 1)
     clipper: Optional[Any] = None
+    compute_dtype: torch.dtype = torch.float32
+    remat: str = "none"
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    def _want_remat(self, which: str) -> bool:
+        sel = {s.strip() for s in self.remat.split(",")}
+        return "all" in sel or which in sel
+
+    def _run(self, which: str, fn, *args):
+        """fn(*args), under torch.utils.checkpoint when `which` is
+        selected by `remat`."""
+        if self._want_remat(which):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _cast(self, tree):
+        """Every floating leaf of `tree` in the compute dtype."""
+        if self.compute_dtype == torch.float32:
+            return tree
+        cd = self.compute_dtype
+        return tree_map(lambda x: x.to(cd) if x.is_floating_point() else x,
+                        tree)
 
     # -- state ----------------------------------------------------------------
     def init_state(self, gen: torch.Generator) -> TrainState:
@@ -132,33 +167,43 @@ class Trainer:
         """Forward, balancer and both backward passes: the (clipped) grads
         the optimizers take and every auxiliary output."""
         la = self.lookahead
+        cast = self._cast
         with torch.enable_grad():
             params_g, leaves_g = _with_grad(state.params_g)
-            wav_g, new_vq, loss_vq, num_replaces = self.model.forward(
-                params_g, state.vq_state, wav_r, draws, training=True)
+            wav_g, new_vq, loss_vq, num_replaces = self._run(
+                "gen", lambda: self.model.forward(
+                    cast(params_g), state.vq_state, cast(wav_r), draws,
+                    training=True))
             wav_r_in = wav_r[:, :, :-la] if la > 0 else wav_r
             w = (wav_g[:, :, la:] if la > 0 else wav_g).detach()
             w.requires_grad_(True)
 
             losses: Dict[str, torch.Tensor] = {}
             grads: Dict[str, torch.Tensor] = {}
-            mel = self.mel_loss(w, wav_r_in)["freq"]
+            mel = self._run("mel",
+                            lambda w: self.mel_loss(w, wav_r_in)["freq"], w)
             losses["freq"] = mel.detach()
             grads["freq"] = torch.autograd.grad(mel, w)[0]
 
+            params_d_c = cast(state.params_d)
             with torch.no_grad():
-                _, fmaps_r = self.disc.apply(state.params_d, wav_r_in)
+                _, fmaps_r = self.disc.apply(params_d_c, cast(wav_r_in))
+                fmaps_r = _f32(fmaps_r)
             for name, d in self.disc.discs.items():
-                lg, fg = d.apply(state.params_d[name], w)
-                g_l = self._g_loss_fn({name: lg})[f"{name}_g"]
-                fm_l = self._fm_loss_fn(
-                    {name: fg}, {name: fmaps_r[name]})[f"{name}_fm"]
+                def fam(w, d=d, name=name):
+                    lg, fg = d.apply(params_d_c[name], cast(w))
+                    g_l = self._g_loss_fn({name: _f32(lg)})[f"{name}_g"]
+                    fm_l = self._fm_loss_fn(
+                        {name: _f32(fg)},
+                        {name: fmaps_r[name]})[f"{name}_fm"]
+                    return g_l, fm_l
+                g_l, fm_l = self._run("disc", fam, w)
                 losses[f"{name}_g"] = g_l.detach()
                 losses[f"{name}_fm"] = fm_l.detach()
                 grads[f"{name}_g"] = torch.autograd.grad(
                     g_l, w, retain_graph=True)[0]
                 grads[f"{name}_fm"] = torch.autograd.grad(fm_l, w)[0]
-            del fmaps_r
+            del fmaps_r, params_d_c
 
             out_grad, new_bal, finite, ema_logs = self.balancer.combine(
                 grads, state.balancer)
@@ -172,19 +217,24 @@ class Trainer:
             g_list = torch.autograd.grad(outs, leaves_g,
                                          grad_outputs=grad_outs,
                                          allow_unused=True)
-            g_grads = unflatten(dict(zip(
-                flatten(state.params_g),
-                [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(g_list, leaves_g)])))
+            g_grads = unflatten(dict(zip(flatten(state.params_g),
+                                         _zeros_for_none(g_list, leaves_g))))
             wav_sg = w.detach()
             del wav_g, params_g, leaves_g, w, grads
 
-            # the discriminator's loss on the detached generated waveform
+            # the discriminator's loss on the detached generated waveform;
+            # a spectral-norm `u` takes no gradient: zeros, as in JAX
             params_d, leaves_d = _with_grad(state.params_d)
-            logits_g, _ = self.disc.apply(params_d, wav_sg)
-            logits_r, _ = self.disc.apply(params_d, wav_r_in)
-            d_loss = self._d_loss_fn(logits_g, logits_r)
-            d_list = torch.autograd.grad(d_loss, leaves_d)
+
+            def d_fn():
+                p_c = cast(params_d)
+                logits_g, _ = self.disc.apply(p_c, cast(wav_sg))
+                logits_r, _ = self.disc.apply(p_c, cast(wav_r_in))
+                return self._d_loss_fn(_f32(logits_g), _f32(logits_r))
+            d_loss = self._run("disc", d_fn)
+            d_list = _zeros_for_none(
+                torch.autograd.grad(d_loss, leaves_d, allow_unused=True),
+                leaves_d)
         d_loss = d_loss.detach()
         d_grads = unflatten(dict(zip(flatten(state.params_d), d_list)))
 
@@ -240,6 +290,7 @@ class Trainer:
             new_opt_d = tree_map(lambda new, old: torch.where(do_d, new,
                                                               old),
                                  new_opt_d, state.opt_d)
+            params_d = spectral_norm_power_iteration(params_d)
         # the VQ codebooks advance whatever the balancer decided (their
         # EMA statistics take no gradient)
         new_state = TrainState(
@@ -275,6 +326,30 @@ class Trainer:
             losses["d"] = self._d_loss_fn(logits_g, logits_r)
             losses["vq"] = loss_vq
         return {f"loss/{k}": v for k, v in losses.items()}
+
+
+def _f32(tree):
+    return tree_map(lambda x: x.float(), tree)
+
+
+def _zeros_for_none(grads, leaves):
+    """autograd.grad's None (a leaf the loss does not reach) as zeros."""
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, leaves)]
+
+
+def spectral_norm_power_iteration(params: Any) -> Any:
+    """Every spectral-norm `{v, u}` pair of a param tree with u advanced
+    by one power iteration."""
+    if isinstance(params, dict):
+        if "u" in params and "v" in params:
+            return dict(params, u=R.spectral_norm_power_iter(params["v"],
+                                                             params["u"]))
+        return {k: spectral_norm_power_iteration(v)
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [spectral_norm_power_iteration(v) for v in params]
+    return params
 
 
 def metrics_to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, Any]:

@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "'hilcodec_tpu_torch.serve.entropy_live', "
         "'hilcodec_tpu_torch.train.lm', "
         "'hilcodec_tpu_torch.train_lm', "
-        "'hilcodec_tpu_torch.entropy_code'} <= set(names)\n")
+        "'hilcodec_tpu_torch.entropy_code', "
+        "'hilcodec_tpu_torch.utils.debug'} <= set(names)\n")
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr[-2000:]
 

@@ -117,16 +117,28 @@ def test_build_trainer_from_cut_down_config(setup):
     assert tr.optim_g.betas == (0.5, 0.9) and tr.lr_g == 5e-4
     assert tr.sched_g.warmup_iterations == 500
     assert tr.mel_loss.transforms[-1] == (1024, 256, 16)
-    for key, value, err in (
-            (("disc_kwargs", "mpd_kwargs"), {"use": True},
-             NotImplementedError),
-            (("train", "optimizer"), "SGDP", NotImplementedError),
-            (("train", "compute_dtype"), "bfloat16", NotImplementedError),
-            (("train", "remat"), "all", NotImplementedError),
-            (("train", "fbd_lowering"), "conv3d", ValueError)):
+    sgdp = {"optimizer": "SGDP",
+            "optimizer_kwargs": {"lr": 5e-4, "momentum": 0.9}}
+    for section, values, check in (
+            ("disc_kwargs", {"mpd_kwargs": {"use": True}},
+             lambda tr: list(tr.disc.discs) == ["mfbd", "mpd", "mstftd"]),
+            ("train", sgdp, lambda tr: type(tr.optim_g).__name__ == "SGDP"),
+            ("train", {"compute_dtype": "bfloat16"},
+             lambda tr: tr.compute_dtype == torch.bfloat16),
+            ("train", {"remat": "all"}, lambda tr: tr.remat == "all")):
+        ok = HParams(**cfg)
+        for k, v in values.items():
+            ok[section][k] = v
+        assert check(build_trainer(ok, "cpu")), values
+    for key, value, match in (
+            (("train", "optimizer"), "SAM", "cannot drive SAM"),
+            (("train", "compute_dtype"), "float8", "compute_dtype"),
+            (("train", "depthwise_lowering"), "im2col",
+             "depthwise lowering"),
+            (("train", "fbd_lowering"), "conv3d", "fbd lowering")):
         bad = HParams(**cfg)
         bad[key[0]][key[1]] = value
-        with pytest.raises(err):
+        with pytest.raises(ValueError, match=match):
             build_trainer(bad, "cpu")
 
 

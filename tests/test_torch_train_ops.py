@@ -217,9 +217,22 @@ def test_discriminators_match(lowering):
 
 
 def test_unported_discriminators_point_at_roadmap():
-    for name in ("mpd_kwargs", "msd_kwargs", "sbd_kwargs"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TD.Discriminators(**{name: {"use": True}})
+    """mpd, msd and sbd build in the aggregate (ported; no longer refused)
+    and match JAX: MPD and MSD at their defaults, SBD at a tiny width."""
+    sbd = dict(use=True, channels=[[4, 8]], strides=[[1, 3]],
+               kernel_sizes=[[[5, 5], [5, 5]]],
+               dilations=[[[1, 2], [1, 2]]], band_ranges=[[0, 2]],
+               transpose=[False],
+               pqmf_kwargs={"subbands": 4, "taps": 32, "cutoff_freq": 0.1,
+                            "beta": 10.0})
+    x = wav(8, (2, 1, 1024))
+    for name, kw in (("mpd", {"use": True}), ("msd", {"use": True}),
+                     ("sbd", sbd)):
+        kwargs = {f"{name}_kwargs": kw}
+        assert list(TD.Discriminators(**kwargs).discs) == [name]
+        j, tt = _fwd_both(JD.Discriminators(**kwargs),
+                          TD.Discriminators(**kwargs), x)
+        _cmp_out(j, tt, name)
 
 
 def test_discriminator_init_shapes_match_jax():

@@ -112,9 +112,17 @@ def test_adamp_matches_jax(name, nesterov):
 
 
 def test_unported_optimizers_point_at_roadmap():
-    for name in ("SGDP", "RAdam", "SAM"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TO.make_optimizer(name, {"lr": 1e-3})
+    """SGDP, RAdam and SAM build (ported; no longer refused), as in JAX;
+    an unknown name still raises."""
+    for name, kw, cls in (
+            ("SGDP", {"lr": 1e-3, "momentum": 0.9}, TO.SGDP),
+            ("RAdam", {"lr": 1e-3}, TO.RAdam),
+            ("SAM", {"base_optimizer": "RAdam", "rho": 0.1,
+                     "base_optimizer_kwargs": {"lr": 2e-3}}, TO.SAM)):
+        opt, lr = TO.make_optimizer(name, dict(kw))
+        jopt, jlr = JO.make_optimizer(name, dict(kw))
+        assert isinstance(opt, cls) and lr == jlr
+        assert type(opt).__name__ == type(jopt).__name__
     with pytest.raises(ValueError):
         TO.make_optimizer("Lion", {"lr": 1e-3})
     fn = TO.make_group_fn(GROUPS + [{"regex_list": ["w$"],
