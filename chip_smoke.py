@@ -42,13 +42,13 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      megakernel=False (tokens exact or f32 ties, PCM within PCM_TOL_LSB on
      the same tokens); the launch counts of this run of the frame kernels
      and the RVQ cascade must be one per frame;
-  6. bench: `python -m hilcodec_tpu_torch.bench S --seconds 1` run
-     in-process at S = 16, 64 and 128 streams, plain and --megakernel, one
-     turn each, each JSON line logged;
+  6. bench: `python -m hilcodec_tpu_torch.bench 64 --seconds 1` run
+     in-process, plain and --megakernel, one turn each, each JSON line
+     logged (16 and 128 streams run in phase 15's turns);
   7. training: (a) the flagship GAN trainer (build_trainer on
      configs/hilcodec_speech.yaml, seeded weights, codebooks k-means-
      initialized on a seeded batch) at batch 24 x 24000 samples of seeded
-     speech-like audio: 3 warm-up and 10 timed steps, step ms p50 / p90
+     speech-like audio: 3 warm-up and 5 timed steps, step ms p50 / p90
      (CUDA events), audio seconds trained per wall second, peak memory,
      a torch.profiler window (device busy, top kernels), the step's FLOPs
      and f32 bound; every loss finite, the params moved, the RVQ kernel
@@ -59,7 +59,8 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      forward's RVQ-kernel tokens against the plain cascade at M = 1800
      rows, n = 2, 4, 8, and the kernel's time there; (d) `python -m
      hilcodec_tpu_torch.train` on a seeded corpus for one epoch (writes
-     00001.ckpt.npz), then resumed for a second;
+     00001.ckpt.npz), then resumed for a second with the histograms, the
+     infer epoch and SI-SDR at interval 1;
   8. tools, on 7(d)'s 00002.ckpt.npz in the same directory: `python -m
      hilcodec_tpu_torch.export --ckpt`; `serve --ckpt` in a subprocess and
      an engine on the exported deploy npz, one 75-frame TCP client each,
@@ -71,10 +72,9 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      kernel's launches over these; the frame kernels at 4 frames a launch
      (encode_stream / decode_stream(megakernel=True, frames_per_step=4))
      at 16 and 128 streams against the plain drivers, one launch per 4
-     frames, each timed at t = 4; a train CLI run with the histograms, the
-     infer epoch and SI-SDR at interval 1 (its event files, or its one-line
-     notice of what it cannot write); `clean_checkpoint --dry-run` lists
-     only 00001.ckpt.npz;
+     frames, each timed at t = 4; 7(d)'s summaries (its event files, or
+     its one-line notice of what it cannot write); `clean_checkpoint
+     --dry-run` lists only 00001.ckpt.npz;
   9. EnCodec (configs/encodec_24khz.yaml at full width, seeded weights,
      N(0, 1) codebooks, folded; the RVQ kernel at n_q = 32, K2's shape):
      the LSTM through cuDNN against a float64 CPU run in the f32 parity
@@ -86,7 +86,7 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      the same tokens); ticks at 16 and 128
      slots with the profiler; the bench with --model encodec (8
      quantizers, K1's shape) at 16 and 128 streams; the trainer at batch
-     24 x 24000 (3 warm-up and 10 timed steps, as 7(a)); the RVQ kernel's
+     24 x 24000 (3 warm-up and 5 timed steps, as 7(a)); the RVQ kernel's
      training tokens at M = 1800, n = 32; one step on the card against
      the CPU step at batch 2 (as 7(b));
  10. Avocodo (configs/avocodo_music.yaml at full width: encoder 64 /
@@ -139,13 +139,34 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      remat), masters / optimizer / VQ state f32 and finite, the bf16
      path's tokens against the plain cascade at M = 1800, bf16 losses
      within 0.1 of f32's and remat's gradients within 2e-3 of none's from
-     one state and batch.
+     one state and batch;
+ 15. the serving path's precision and model options: the decoder and
+     encoder frame kernels at --dtype bf16w (bf16 weights, widened when
+     packed) and bf16 (bf16 input, aux inputs and caches, rounded where
+     stored) against their plain version of the same dtype at 1, 16 and
+     128 streams (within one bf16 spacing), timed at 16 and 128 with a
+     bound from the stored bytes and bf16 weights, and encode_stream /
+     decode_stream(megakernel=True) at 16 streams x 75 frames against the
+     plain frame step of the same dtype (one launch a frame each; latents,
+     tokens, PCM); `export --program`'s
+     torch.export programs at 16 streams, saved, loaded and stepped 75
+     frames (tokens equal to the eager step's, the RVQ kernel launched by
+     the program once a frame); the bench at --dtype f32 / bf16w / bf16
+     (flagship plain and --megakernel; AudioDec plain) at 16 and 128
+     streams, 0.5 s; engine ticks at 16 and 128 slots at bfloat16 beside
+     float32 (flagship, AudioDec), profiled at 128; the flagship with
+     weight standardization, the learnable
+     STFT and channelwise skips at full width (temporary yaml): 16 slots x
+     75 ticks, tokens exact or ties against the CPU, two finite train
+     steps, and the frame kernels on the weight-standardized flagship;
+     EnCodec with pad_mode edge and wrap, offline, against the CPU.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
 """
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import os
@@ -184,7 +205,9 @@ PATH_STREAMS = 128            # the frame-kernel path and the bench
 # 3 and 64 cross the lowering's tile and split choices and leave ragged
 # tiles
 FRAME_BATCHES = (1, 3, 7, 16, 64, 128)
-BENCH_STREAMS = (16, 64, 128)
+# phase 6's stream counts: 16 and 128 run in phase 15's turns, at every
+# --dtype, plain and with the frame kernels
+BENCH_STREAMS = (64,)
 # small models whose channel counts are not multiples of 4
 ODD_CHANNELS = (6, 10)
 # frame kernels vs their plain version: the largest |difference| of a
@@ -470,14 +493,19 @@ def phase_kernels(dev):
     return max_err, timings
 
 
-def frame_bound_ms(mk, w, x, aux, caches):
+def frame_bound_ms(mk, w, x, aux, caches, bf16_weights=False):
     """Least time for one frame step of `mk` on these inputs, on two
     engines: the larger of its operations over the peak and its bytes
-    (input, aux, weights and caches read once; output and caches written
-    once) over the HBM rate. "f32": every f32 operation on the CUDA cores;
-    "tc": the 1x1-conv products at TF32_PRODUCTS TF32 products each on the
-    tensor cores (the engine the kernel uses for them), the rest on the
-    CUDA cores. Returns ({"f32"|"tc": (ms, "operations"|"bytes")}, flops,
+    (input, aux, weights and caches read once, each at its element size,
+    the weights at 2 bytes each when their tree stores them in bf16
+    (`bf16_weights`), else 4; output and caches written once) over the
+    HBM rate. "f32": every f32 operation on the CUDA cores; "tc": the
+    1x1-conv products on the tensor cores (the engine the kernel uses for
+    them) at the least cost of an f32-accurate product, the rest on the
+    CUDA cores: TF32_PRODUCTS TF32 products each for f32 weights; for
+    bf16 weights, whose small part is 0, the cheaper of 2 TF32 products
+    and 3 bf16 products (the f32 activation split into three bf16
+    pieces). Returns ({"f32"|"tc": (ms, "operations"|"bytes")}, flops,
     GEMM flops)."""
     from hilcodec_tpu_torch.ops import decoder_kernel as DK
     B = x.shape[0]
@@ -502,26 +530,32 @@ def frame_bound_ms(mk, w, x, aux, caches):
             flops += ti * ci                 # act, scale, residual add
     flops, gemm = flops * B, gemm * B
     t_out, c_out = DK.op_shapes(mk.ops, t, c)[-1][2:]
-    floats = (x.numel() + sum(a.numel() for a in aux)
-              + sum(v.numel() for lay in w.per_op if lay
+    nbytes = (x.numel() * x.element_size()
+              + sum(a.numel() * a.element_size() for a in aux)
+              + (2 if bf16_weights else 4)
+              * sum(v.numel() for lay in w.per_op if lay
                     for v in lay.values())
-              + 2 * sum(cc.numel() for cc in caches) + B * t_out * c_out)
-    t_bytes = 4.0 * floats / PEAK_HBM_BYTES
+              + 2 * sum(cc.numel() * cc.element_size() for cc in caches)
+              + B * t_out * c_out * x.element_size())
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    gemm_s = (min(2 / PEAK_TF32_FLOPS, 3 / PEAK_BF16_FLOPS) if bf16_weights
+              else TF32_PRODUCTS / PEAK_TF32_FLOPS)
     bounds = {}
     for engine, t_ops in (
             ("f32", (gemm + flops) / PEAK_F32_FLOPS),
-            ("tc", gemm * TF32_PRODUCTS / PEAK_TF32_FLOPS
-             + flops / PEAK_F32_FLOPS)):
+            ("tc", gemm * gemm_s + flops / PEAK_F32_FLOPS)):
         bounds[engine] = (max(t_ops, t_bytes) * 1e3,
                           "operations" if t_ops >= t_bytes else "bytes")
     return bounds, gemm + flops, gemm
 
 
-def frame_cases(model, params, B, gen):
+def frame_cases(model, params, B, gen, dtype=None):
     """Per frame kernel: (name, its step object, params, inputs(cache,
     frame) -> (kernel inputs x, aux, the layer caches, the next wav ring),
-    first cache, frame maker)."""
+    first cache, frame maker); frames and caches in `dtype` (f32 when
+    None)."""
     import torch
+    dtype = dtype or torch.float32
     from hilcodec_tpu_torch.models.codec import (_decoder_megakernel,
                                                  _encoder_megakernel)
     from hilcodec_tpu_torch.ops import rvq
@@ -535,11 +569,12 @@ def frame_cases(model, params, B, gen):
     def dec_frame():
         tok = torch.randint(0, vq.codebook_size, (vq.num_quantizers, B, 1),
                             generator=gen).to(dev)
-        return rvq.dequantize(tok, books)          # time-major [B, 1, 128]
+        # time-major [B, 1, 128]
+        return rvq.dequantize(tok, books).to(dtype)
 
     def enc_frame():
         return (torch.randn((B, 1, model.hop_length), generator=gen)
-                * 0.3).to(dev)
+                * 0.3).to(dev, dtype)
 
     def dec_inputs(cache, q):
         return q, [], cache, None
@@ -549,9 +584,9 @@ def frame_cases(model, params, B, gen):
         return window, aux, cache[1:], ring
 
     return [("decoder_frame", dm, params["decoder"], dec_inputs,
-             dm.init_cache(B, device=dev), dec_frame),
+             dm.init_cache(B, dtype, dev), dec_frame),
             ("encoder_frame", em, params["encoder"], enc_inputs,
-             em.init_cache(B, device=dev), enc_frame)]
+             em.init_cache(B, dtype, dev), enc_frame)]
 
 
 def phase_frame_kernels(model, params, batches=FRAME_BATCHES, tag=""):
@@ -1017,8 +1052,9 @@ def phase_frame_path(model, params, vq_state):
 # --------------------------------------------------------------- phase 6
 
 def phase_bench():
-    """The bench entry at 16, 64 and 128 streams and 1 s of audio, plain and
-    with the frame kernels, one turn each, in this process."""
+    """The bench entry at 64 streams (phase 15 runs 16 and 128) and 1 s of
+    audio, plain and with the frame kernels, one turn each, in this
+    process."""
     from hilcodec_tpu_torch import bench
     for streams in BENCH_STREAMS:
         base = [str(streams), "--seconds", "1"]
@@ -1033,7 +1069,9 @@ def phase_bench():
 TRAIN_BATCH = 24              # the flagship config's batch
 TRAIN_SEGMENT = 24000         # its segment (1 s at 24 kHz)
 TRAIN_WARMUP = 3
-TRAIN_TIMED = 10
+# timed steps of each training mode: 5 (10 before the serving options'
+# phase 15), a cut of depth for the run's time
+TRAIN_TIMED = 5
 # steps in the profiled window: 1 (it was 2, and 3 before that), a cut
 # of depth for the run's time: reading the trace of one step of
 # 40,000-56,000 kernels takes ~25 s
@@ -1222,16 +1260,18 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: the same kernels and device time as
+    # with the host's events too, whose trace is slower to read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for b in batches[:TRAIN_PROFILED]:
             step(b)
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.device_time_total for e in dev) / TRAIN_PROFILED / 1e3
     n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
-    log(f"[{tag}] torch.profiler over {TRAIN_PROFILED} step(s) (a window "
-        f"cut from 2 to 1 step for the run's time): {dev_ms:.1f} "
+    log(f"[{tag}] torch.profiler (device activity) over {TRAIN_PROFILED} "
+        f"step(s) (a window cut from 2 to 1 step for the run's time): "
+        f"{dev_ms:.1f} "
         f"ms of device kernels and {n_kernels:.0f} kernels a step; device "
         f"busy {dev_ms / p50 * 100:.0f}% of the p50 step (the window and "
         f"its trace took {time.perf_counter() - t0:.1f} s)")
@@ -1574,8 +1614,10 @@ def phase_train_cli(tmp, config=os.path.join(ROOT, "configs",
                     name="smoke", runs=2):
     """(d) `python -m hilcodec_tpu_torch.train` of `config` on a seeded
     corpus written with the port's write_wav: one epoch writes
-    00001.ckpt.npz and, with runs=2, a second run resumes from it and
-    writes 00002.ckpt.npz; under {tmp}/logs/{name}."""
+    00001.ckpt.npz and, with runs=2, a second run resumes from it with the
+    summaries of `summaries_config` on (-f) and writes 00002.ckpt.npz;
+    under {tmp}/logs/{name}. Returns the last run's standard output and
+    seconds."""
     import yaml
     from hilcodec_tpu_torch.utils.wavio import write_wav
 
@@ -1605,24 +1647,48 @@ def phase_train_cli(tmp, config=os.path.join(ROOT, "configs",
         yaml.safe_dump(cfg, f)
     base = os.path.join(tmp, "logs")
     env = dict(os.environ, PYTHONPATH=ROOT)
-    for i, extra in enumerate((["-c", path], ["-p", "train.max_epochs=2"])
-                              [:runs]):
+    resume = ["-c", summaries_config(tmp, cfg), "-f", "-p",
+              "train.max_epochs=2"]
+    for i, extra in enumerate((["-c", path], resume)[:runs]):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, "-m", "hilcodec_tpu_torch.train", "-n", name,
              "-b", base] + extra, cwd=ROOT, env=env, capture_output=True,
             text=True, timeout=600)
+        dt = time.perf_counter() - t0
         for ln in (out.stdout + out.stderr).strip().splitlines()[-6:]:
             log(f"[train-cli]   {ln[:160]}")
         ckpt = os.path.join(base, name, f"{i + 1:05d}.ckpt.npz")
         if out.returncode != 0 or not os.path.exists(ckpt):
             raise AssertionError(f"train CLI run {i + 1} failed "
-                                 f"(rc {out.returncode}) or wrote no {ckpt}")
+                                 f"(rc {out.returncode}) or wrote no {ckpt}"
+                                 f"\n{out.stderr[-3000:]}")
         if i == 1 and "resumed from" not in out.stdout:
             raise AssertionError("the second CLI run did not resume")
         log(f"[train-cli] run {i + 1} ({' '.join(extra)}): rc 0 in "
-            f"{time.perf_counter() - t0:.1f} s, wrote "
-            f"{os.path.relpath(ckpt, tmp)}")
+            f"{dt:.1f} s, wrote {os.path.relpath(ckpt, tmp)}")
+    return out.stdout, dt
+
+
+def summaries_config(tmp, cfg):
+    """`cfg` with the histograms, the infer epoch and SI-SDR on the pesq
+    filelist at interval 1, written to {tmp}/config_summaries.yaml; its
+    path."""
+    import copy
+    import yaml
+    cfg = copy.deepcopy(cfg)
+    valid = os.path.join(tmp, "valid.txt")
+    cfg["data"]["filelists"].update(infer=valid, pesq=valid)
+    cfg["data"]["num_infer"] = 2
+    cfg["train"]["plot_param_and_grad"] = True
+    cfg["infer"] = {"interval": 1, "batch_size": 1}
+    cfg["pesq"] = {"interval": 1, "batch_size": 2, "num_workers": 0,
+                   "metrics_to_calculate": {"pesq": False, "stoi": False,
+                                            "sisdr": True}}
+    path = os.path.join(tmp, "config_summaries.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
 
 
 def phase_train(card):
@@ -1635,8 +1701,8 @@ def phase_train(card):
     del trainer, state
     phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
-        phase_train_cli(tmp)
-        tools = phase_tools(tmp, card)
+        resumed = phase_train_cli(tmp)
+        tools = phase_tools(tmp, card, resumed)
     return res, tools
 
 
@@ -1676,9 +1742,9 @@ def in_process(main, argv, tag="tools"):
     return buf.getvalue(), time.perf_counter() - t0
 
 
-def serve_subprocess(cfg, ckpt=None):
-    """`python -m hilcodec_tpu_torch.serve [--ckpt]` on a free port, 4
-    slots: (process, port, seconds to its first "serving" line)."""
+def spawn_serve(cfg, ckpt=None):
+    """Start `python -m hilcodec_tpu_torch.serve [--ckpt]` on a free port,
+    4 slots: (process, a queue of its output lines, the start time)."""
     import queue
     import threading
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -1691,6 +1757,15 @@ def serve_subprocess(cfg, ckpt=None):
     lines = queue.Queue()
     threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
                      daemon=True).start()
+    return proc, lines, t0
+
+
+def await_serving(started):
+    """(process, port, seconds from the start to its first "serving"
+    line) of a `spawn_serve` handle; kills the process if it fails to
+    start."""
+    import queue
+    proc, lines, t0 = started
     seen = []
     while time.perf_counter() - t0 < 300:
         try:
@@ -1710,17 +1785,34 @@ def serve_subprocess(cfg, ckpt=None):
                          + " | ".join(seen[-10:]))
 
 
-def phase_tools(tmp, card):
+@contextlib.contextmanager
+def serve_started(cfg, ckpt=None):
+    """`spawn_serve(cfg, ckpt)` now, so that its start-up overlaps the
+    caller's next (untimed) work; yields the handle for `await_serving`
+    and kills the process on the way out if it still runs."""
+    started = spawn_serve(cfg, ckpt)
+    try:
+        yield started
+    finally:
+        proc = started[0]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_tools(tmp, card, resumed):
     """8. The tools on (d)'s trained checkpoint logs/smoke/00002.ckpt.npz:
     (a) export, then serve --ckpt in a subprocess and an engine built here
     from the exported deploy npz, one 75-frame TCP client each, identical
     tokens; (b) infer at -f 1 and -f 4 with --latency; (c) eval in model
     mode (--stream) and degraded mode on the infer output; the RVQ
     kernel's launches over (a)'s engine, (b) and (c); (d) the frame kernels
-    at t = 4 frames a launch on the trained weights; (e) a train CLI run
-    with the infer and pesq epochs and the histograms on; (f)
+    at t = 4 frames a launch on the trained weights; (e) the summaries
+    of (d)'s resumed run (`resumed`: its output and seconds), which had
+    the infer and pesq epochs and the histograms on; (f)
     clean_checkpoint --dry-run."""
     import torch
+    from hilcodec_tpu_torch import clean_checkpoint as tools_clean
     from hilcodec_tpu_torch import eval as tools_eval
     from hilcodec_tpu_torch import infer as tools_infer
     from hilcodec_tpu_torch.ops import rvq, rvq_kernel
@@ -1736,25 +1828,28 @@ def phase_tools(tmp, card):
 
     # (a) export, and the two ways to the server
     deploy = os.path.join(tmp, "deploy", "smoke")
-    out, dt = cli("export", ["-c", cfg, "--ckpt", ckpt, "-o", deploy])
-    log(f"[tools] export --ckpt 00002.ckpt.npz in {dt:.1f} s (process "
-        f"start included; {card}): {out.strip()}")
-    proc, port, dt = serve_subprocess(cfg, ckpt)
-    try:
-        log(f"[tools] serve --ckpt serving on port {port} {dt:.1f} s after "
-            f"start ({card})")
-        model, params, vq_state = serving_weights(
-            hps, params_path=deploy + "_deploy.npz", device="cuda")
-        hop, n_q = model.hop_length, model.vq.num_quantizers
-        audio = client_audio(0, hop)
-        tok_ckpt, pcm_ckpt = asyncio.run(run_client(port, audio, hop, n_q))
-    finally:
-        proc.terminate()
+    with serve_started(cfg, ckpt) as started:
+        out, dt = cli("export", ["-c", cfg, "--ckpt", ckpt, "-o", deploy])
+        log(f"[tools] export --ckpt 00002.ckpt.npz in {dt:.1f} s (process "
+            f"start included, beside serve --ckpt's start; {card}): "
+            f"{out.strip()}")
+        proc, port, dt = await_serving(started)
         try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+            log(f"[tools] serve --ckpt serving on port {port} {dt:.1f} s "
+                f"after start (beside export; {card})")
+            model, params, vq_state = serving_weights(
+                hps, params_path=deploy + "_deploy.npz", device="cuda")
+            hop, n_q = model.hop_length, model.vq.num_quantizers
+            audio = client_audio(0, hop)
+            tok_ckpt, pcm_ckpt = asyncio.run(run_client(port, audio, hop,
+                                                        n_q))
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
     engine = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
                         fold=False, device=model.device)
     engine.warmup()
@@ -1866,10 +1961,10 @@ def phase_tools(tmp, card):
     t4 = phase_frame_t4(model_f, params_f, vq_f, card)
     del model_f, params_f, vq_f, model, params, vq_state
 
-    # (e) the train CLI with its summaries, and (f) the checkpoint GC
-    phase_train_summaries(tmp, card)
+    # (e) the train CLI's summaries, and (f) the checkpoint GC
+    phase_train_summaries(tmp, card, *resumed)
     base = os.path.join(tmp, "logs")
-    out, _ = cli("clean_checkpoint", [base, "--dry-run"])
+    out, _ = in_process(tools_clean.main, [base, "--dry-run"])
     listed = [ln for ln in out.splitlines() if ln.startswith("would remove")]
     want = [f"would remove {os.path.join(base, 'smoke', '00001.ckpt.npz')}"]
     if listed != want or not os.path.exists(ckpt):
@@ -1952,38 +2047,22 @@ def phase_frame_t4(model, params, vq_state, card):
     return out
 
 
-def phase_train_summaries(tmp, card):
-    """(e) The train CLI for one epoch (run smoke_tb) with the histograms,
-    the infer epoch and SI-SDR on the pesq filelist at interval 1: event
-    files under train/ and valid/ carrying them, or, where a package is
-    missing, the loop's one line naming what it does not write."""
-    import yaml
+def phase_train_summaries(tmp, card, out, dt):
+    """(e) The summaries of run smoke's resumed epoch (`out`, its standard
+    output, and `dt`, its seconds), which had the histograms, the infer
+    epoch and SI-SDR on the pesq filelist at interval 1: event files under
+    train/ and valid/ carrying them, or, where a package is missing, the
+    loop's one line naming what it does not write."""
     from hilcodec_tpu_torch.utils import summarize as S
 
-    with open(os.path.join(tmp, "config.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    valid = os.path.join(tmp, "valid.txt")
-    cfg["data"]["filelists"].update(infer=valid, pesq=valid)
-    cfg["data"]["num_infer"] = 2
-    cfg["train"]["plot_param_and_grad"] = True
-    cfg["infer"] = {"interval": 1, "batch_size": 1}
-    cfg["pesq"] = {"interval": 1, "batch_size": 2, "num_workers": 0,
-                   "metrics_to_calculate": {"pesq": False, "stoi": False,
-                                            "sisdr": True}}
-    path = os.path.join(tmp, "config_summaries.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
     base = os.path.join(tmp, "logs")
-    out, dt = cli("train", ["-n", "smoke_tb", "-b", base, "-c", path])
-    for ln in out.strip().splitlines()[-8:]:
-        log(f"[train-tb]   {ln[-160:]}")
     absent = S.missing()
     notice = [ln for ln in out.splitlines() if ln.startswith("TrainLoop:")]
     if absent and len(notice) != 1:
         raise AssertionError(f"{absent} missing, but the loop said {notice}")
     if "metric/sisdr" not in out:
         raise AssertionError("the pesq epoch wrote no metric/sisdr")
-    run = os.path.join(base, "smoke_tb")
+    run = os.path.join(base, "smoke")
     if "tensorboard" in absent:
         log(f"[train-tb] no tensorboard: {notice[0]}")
         return
@@ -1995,14 +2074,23 @@ def phase_train_summaries(tmp, card):
             "scalars": 0, "histograms": 0, "images": 0, "audio": 0})
         ea.Reload()
         tags[part] = ea.Tags()
-    want_images = 0 if "matplotlib" in absent else 4
+    # the resumed (second) epoch writes the reconstructions of the two
+    # infer files; the ground truth goes out in the first epoch only
+    gen = ["gen/wav_0", "gen/wav_1"]
+    want_images = [] if "matplotlib" in absent else ["gen/mel_0",
+                                                     "gen/mel_1"]
     if not (tags["train"]["histograms"] and "loss/freq" in
             tags["train"]["scalars"] and "metric/sisdr" in
-            tags["valid"]["scalars"] and len(tags["valid"]["audio"]) == 4
-            and len(tags["valid"]["images"]) == want_images):
-        raise AssertionError(f"event files lack the summaries: {tags}")
-    log(f"[train-tb] one epoch in {dt:.1f} s ({card}); event files: train "
-        f"{len(tags['train']['scalars'])} scalars, "
+            tags["valid"]["scalars"]
+            and sorted(tags["valid"]["audio"]) == gen
+            and sorted(tags["valid"]["images"]) == want_images):
+        raise AssertionError(f"event files lack the summaries: train "
+                             f"{len(tags['train']['histograms'])} "
+                             f"histograms, scalars "
+                             f"{tags['train']['scalars']}; valid "
+                             f"{tags['valid']}")
+    log(f"[train-tb] the resumed epoch in {dt:.1f} s ({card}); event "
+        f"files: train {len(tags['train']['scalars'])} scalars, "
         f"{len(tags['train']['histograms'])} histograms; valid "
         f"{len(tags['valid']['scalars'])} scalars, "
         f"{len(tags['valid']['audio'])} audio, "
@@ -2067,11 +2155,12 @@ def phase_lstm(dev):
                              f"modes apart")
 
 
-def phase_serve_cli(config, card, tag):
+def phase_serve_cli(config, card, tag, started):
     """`python -m hilcodec_tpu_torch.serve -c CONFIG` (4 slots, its seeded
-    weights) in a subprocess, one 75-frame client, against a 4-slot engine
-    in this process on the weights the CLI builds (`serving_weights`): the
-    same tokens, PCM within PCM_TOL_LSB."""
+    weights) in a subprocess, started already (`serve_started`), one
+    75-frame client, against a 4-slot engine in this process on the
+    weights the CLI builds (`serving_weights`): the same tokens, PCM within
+    PCM_TOL_LSB."""
     from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
     from hilcodec_tpu_torch.serve.__main__ import serving_weights
     from hilcodec_tpu_torch.utils.hparams import load_config
@@ -2081,7 +2170,7 @@ def phase_serve_cli(config, card, tag):
     sr = hps.data.sampling_rate
     hop, n_q = model.hop_length, model.vq.num_quantizers
     audio = client_audio(0, hop)
-    proc, port, dt = serve_subprocess(config)
+    proc, port, dt = await_serving(started)
     try:
         tok_cli, pcm_cli = asyncio.run(run_client(port, audio, hop, n_q))
     finally:
@@ -2106,7 +2195,8 @@ def phase_serve_cli(config, card, tag):
     tok, pcm = asyncio.run(served())
     lsb = int(np.abs(pcm.astype(np.int64) - pcm_cli).max())
     log(f"[{tag}] serve -c {os.path.relpath(config, ROOT)} serving "
-        f"{dt:.1f} s after start ({card}); one {CLIENT_FRAMES}-frame client "
+        f"{dt:.1f} s after start (started beside this phase's untimed "
+        f"work; {card}); one {CLIENT_FRAMES}-frame client "
         f"against an engine in this process: tokens "
         f"{'identical' if np.array_equal(tok, tok_cli) else 'DIFFER'}, PCM "
         f"max |diff| {lsb} int16 steps")
@@ -2122,7 +2212,7 @@ def phase_encodec(card):
     solo stream with the plain quantizer); the serve CLI; ticks at 16 and
     128 slots with
     the profiler; the bench with --model encodec at 16 and 128 streams;
-    the trainer at batch 24 x 24000 (3 warm-up, 10 timed steps); the RVQ
+    the trainer at batch 24 x 24000 (3 warm-up, 5 timed steps); the RVQ
     kernel's training tokens at M = 1800, n = 32; one step on the card
     against the CPU step at batch 2. Returns the RVQ kernel's launches on
     the serving, bench and training paths and the training numbers."""
@@ -2130,15 +2220,17 @@ def phase_encodec(card):
     from hilcodec_tpu_torch import bench
     from hilcodec_tpu_torch.ops import rvq_kernel
 
-    phase_lstm(torch.device("cuda", 0))
-    model, params, vq_state, sr = build_encodec("cuda")
-    log(f"[encodec] configs/encodec_24khz.yaml: hop {model.hop_length}, "
-        f"RVQ {model.vq.num_quantizers} x {model.vq.codebook_size} x "
-        f"{model.vq.dim}, caches {[len(c) for c in model.init_cache(1)]} "
-        f"tensors, slot axes {model.cache_axes()}")
-    serve_launches = phase_serve(model, params, vq_state, sr,
-                                 tag="encodec-serve")
-    phase_serve_cli(ENCODEC_CONFIG, card, "encodec-serve-cli")
+    with serve_started(ENCODEC_CONFIG) as started:
+        phase_lstm(torch.device("cuda", 0))
+        model, params, vq_state, sr = build_encodec("cuda")
+        log(f"[encodec] configs/encodec_24khz.yaml: hop {model.hop_length}, "
+            f"RVQ {model.vq.num_quantizers} x {model.vq.codebook_size} x "
+            f"{model.vq.dim}, caches "
+            f"{[len(c) for c in model.init_cache(1)]} tensors, slot axes "
+            f"{model.cache_axes()}")
+        serve_launches = phase_serve(model, params, vq_state, sr,
+                                     tag="encodec-serve")
+        phase_serve_cli(ENCODEC_CONFIG, card, "encodec-serve-cli", started)
     ticks = phase_timings(model, params, vq_state, card,
                           tag="encodec-timing")
     del model, params, vq_state
@@ -2182,7 +2274,7 @@ def phase_avocodo(card):
     x 75 frames, each against its solo stream with the plain quantizer,
     one RVQ launch a tick); the serve CLI; ticks at 16 and 128 slots with
     the profiler; the bench with --model avocodo at 16 and 128 streams;
-    the Avocodo trainer at batch 12 x 24000 (3 warm-up, 10 timed steps);
+    the Avocodo trainer at batch 12 x 24000 (3 warm-up, 5 timed steps);
     the RVQ kernel's training tokens at M = 900 for n = 2, 4, 8, 12; one
     step on the card against the CPU step at batch 2; 3 steps of
     configs/avocodo_synth_hiltrainer.yaml at batch 24; the tools on a
@@ -2199,14 +2291,16 @@ def phase_avocodo(card):
         log(f"[time] phase 10 {part} done at "
             f"{time.perf_counter() - t0:.1f} s into the phase")
 
-    model, params, vq_state, sr = build_flagship("cuda", AVOCODO_CONFIG)
-    log(f"[avocodo] configs/avocodo_music.yaml: hop {model.hop_length}, "
-        f"RVQ {model.vq.num_quantizers} x {model.vq.codebook_size} x "
-        f"{model.vq.dim}, caches {[len(c) for c in model.init_cache(1)]} "
-        f"tensors, slot axes {model.cache_axes()}")
-    serve_launches = phase_serve(model, params, vq_state, sr,
-                                 tag="avocodo-serve")
-    phase_serve_cli(AVOCODO_CONFIG, card, "avocodo-serve-cli")
+    with serve_started(AVOCODO_CONFIG) as started:
+        model, params, vq_state, sr = build_flagship("cuda", AVOCODO_CONFIG)
+        log(f"[avocodo] configs/avocodo_music.yaml: hop {model.hop_length}, "
+            f"RVQ {model.vq.num_quantizers} x {model.vq.codebook_size} x "
+            f"{model.vq.dim}, caches "
+            f"{[len(c) for c in model.init_cache(1)]} tensors, slot axes "
+            f"{model.cache_axes()}")
+        serve_launches = phase_serve(model, params, vq_state, sr,
+                                     tag="avocodo-serve")
+        phase_serve_cli(AVOCODO_CONFIG, card, "avocodo-serve-cli", started)
     done("serving")
     ticks = phase_timings(model, params, vq_state, card,
                           tag="avocodo-timing")
@@ -2494,14 +2588,16 @@ def phase_audiodec(card):
     timings, max_err = phase_rvq64(torch.device("cuda", 0))
     with tempfile.TemporaryDirectory() as tmp:
         cfg = write_audiodec_config(tmp)
-        model, params, vq_state, sr = build_flagship("cuda", cfg)
-        log(f"[audiodec] AudioDec(): hop {model.hop_length}, RVQ "
-            f"{model.vq.num_quantizers} x {model.vq.codebook_size} x "
-            f"{model.vq.dim}, caches {[len(c) for c in model.init_cache(1)]}"
-            f" tensors, slot axes {model.cache_axes()}")
-        serve_launches = phase_serve(model, params, vq_state, sr,
-                                     tag="audiodec-serve")
-        phase_serve_cli(cfg, card, "audiodec-serve-cli")
+        with serve_started(cfg) as started:
+            model, params, vq_state, sr = build_flagship("cuda", cfg)
+            log(f"[audiodec] AudioDec(): hop {model.hop_length}, RVQ "
+                f"{model.vq.num_quantizers} x {model.vq.codebook_size} x "
+                f"{model.vq.dim}, caches "
+                f"{[len(c) for c in model.init_cache(1)]} tensors, slot "
+                f"axes {model.cache_axes()}")
+            serve_launches = phase_serve(model, params, vq_state, sr,
+                                         tag="audiodec-serve")
+            phase_serve_cli(cfg, card, "audiodec-serve-cli", started)
         done("serving")
         ticks = phase_timings(model, params, vq_state, card,
                               tag="audiodec-timing")
@@ -3000,6 +3096,469 @@ def phase_train_options(card, f32):
     return dict(hifigan=hifigan, **rows)
 
 
+# --------------------------------------------------------------- phase 15
+
+PRECISIONS = ("bf16w", "bf16")
+BF16_FRAME_BATCHES = (1, SERVE_SLOTS, PATH_STREAMS)
+OPTION_STREAMS = (SERVE_SLOTS, PATH_STREAMS)
+# a frame kernel against its plain version of the same dtype: at most one
+# bf16 spacing at each tensor's largest magnitude (both compute in f32 and
+# round where a cache or the output is stored; sums in another order may
+# round a value the other way)
+BF16_KERNEL_SPACINGS = 1.0
+# the frame-kernel path against the plain frame step of the same dtype, 75
+# frames: the latents within LATENT_SPACINGS bf16 spacings (the kernel
+# rounds only where it stores, the plain bf16 step after every op), the
+# PCM on the same tokens within PATH_PCM_SPACINGS; the path's tokens are
+# the plain cascade's of its own latents (exact or f32 ties), and where
+# they differ from the plain step's, each first divergence's two
+# codewords lie within BF16_TIE_REL of each other in relative distance
+# from the plain step's latents (bf16's spacing at 1: two sets of bf16
+# latents that round at different points differ by about that)
+LATENT_SPACINGS = 32
+PATH_PCM_SPACINGS = 64
+BF16_TIE_REL = 2.0 ** -7
+EXPORT_STREAMS = SERVE_SLOTS
+BENCH15_SECONDS = "0.5"      # 37 frames a bench run, for the run's time
+OPTION_TRAIN_BATCH = 2
+
+
+def spacings(got, ref):
+    """max |got - ref| in units of bf16's spacing at ref's largest
+    magnitude (2^(floor(log2 max|ref|) - 7))."""
+    got, ref = got.float(), ref.float()
+    top = float(ref.abs().max())
+    if top == 0.0:
+        return float((got - ref).abs().max())
+    return float((got - ref).abs().max()) / 2.0 ** (np.floor(np.log2(top))
+                                                    - 7)
+
+
+def _cast_mode(params, mode):
+    import torch
+    from hilcodec_tpu_torch.models.codec import cast_streaming_params
+    act = torch.bfloat16 if mode == "bf16" else torch.float32
+    return cast_streaming_params(params, torch.bfloat16,
+                                 kernels_only=mode == "bf16w"), act
+
+
+def phase_frame_bf16(model, params, vq_state):
+    """K3 and K4 at --dtype bf16w and bf16 on the flagship: against their
+    plain version of the same dtype at 1, 16 and 128 streams (3 frames,
+    caches threaded through the plain version's), timed at 16 and 128
+    beside the plain version and a bound (`frame_bound_ms` of bf16
+    weights); then the frame-kernel path (encode_stream /
+    decode_stream(megakernel=True)) at 16 streams x 75 frames against the
+    plain frame step of the same dtype: tokens, PCM, launches, the latents
+    from the encoder frame kernel's steps run again (their tokens equal to
+    the entry point's). Returns {(kernel, mode): entry fields}."""
+    import torch
+    from hilcodec_tpu_torch.models.codec import _encoder_megakernel
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+    from hilcodec_tpu_torch.ops import encoder_kernel as EK
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+
+    out = {}
+    for mode in PRECISIONS:
+        p, act = _cast_mode(params, mode)
+        gen = torch.Generator().manual_seed(SEED + 15)
+        for B in BF16_FRAME_BATCHES:
+            for name, mk, pp, inputs, cache, frame in frame_cases(
+                    model, p, B, gen, act):
+                w = mk.weights(pp)
+                worst = abs_err = 0.0
+                for _ in range(3):
+                    x, aux, lc, ring = inputs(cache, frame())
+                    y, got = mk.run(pp, x, aux, lc)
+                    torch.cuda.synchronize()
+                    y_ref, ref = DK.run_plain(mk.ops, w.per_op, x, aux, lc)
+                    for a, b in zip([y] + got, [y_ref] + ref):
+                        if (a.dtype != b.dtype or a.shape != b.shape
+                                or not torch.isfinite(a.float()).all()):
+                            raise AssertionError(f"{name} {mode} B={B}: bad "
+                                                 f"output or dtype")
+                        worst = max(worst, spacings(a, b))
+                        abs_err = max(abs_err, float(
+                            (a.float() - b.float()).abs().max()))
+                    cache = ref if ring is None else [ring] + ref
+                log(f"[bf16-kernel] {name} --dtype {mode} B={B} x3 frames: "
+                    f"output {y.dtype}, caches {got[0].dtype}; max diff from "
+                    f"the plain version {worst:.3f} bf16 spacings (bar "
+                    f"{BF16_KERNEL_SPACINGS})")
+                if worst > BF16_KERNEL_SPACINGS:
+                    raise AssertionError(f"{name} --dtype {mode} disagrees "
+                                         f"with its plain version at B={B}")
+                entry = out.setdefault((name, mode), {"max_spacings": 0.0,
+                                                      "max_abs_err": 0.0})
+                entry["max_spacings"] = max(entry["max_spacings"], worst)
+                entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+                if B in OPTION_STREAMS:
+                    ms = cuda_ms(lambda: mk.run(pp, x, aux, lc), repeats=20)
+                    plain = cuda_ms(lambda: DK.run_plain(
+                        mk.ops, w.per_op, x, aux, lc), repeats=10)
+                    bounds, _, _ = frame_bound_ms(mk, w, x, aux, lc,
+                                                  bf16_weights=True)
+                    entry[B] = (ms, plain, bounds["tc"])
+                    log(f"[bf16-kernel] {name} --dtype {mode} B={B}: "
+                        f"{ms:.4f} ms a launch, plain {plain:.4f} ms, "
+                        f"bound {bounds['tc'][0]:.4f} ms "
+                        f"({bounds['tc'][1]}; bf16 bytes where stored "
+                        f"bf16, the 1x1 products at the cost of an "
+                        f"f32-accurate product of bf16 weights)")
+        # the frame-kernel path against the plain frame step, same dtype:
+        # encode_stream / decode_stream(megakernel=True), then, for the
+        # latents, the encoder frame kernel's steps again on the same
+        # inputs (their tokens must be the entry point's)
+        hop, books = model.hop_length, vq_state["embed"]
+        B = SERVE_SLOTS
+        wav = torch.from_numpy(np.stack([
+            client_audio(i, hop).astype(np.float32) / 32768.0
+            for i in range(B)])[:, None]).to(model.device, act)
+        ce, cd = model.init_cache(B, act)
+        em = _encoder_megakernel(model.codec.encoder)
+        with torch.no_grad():
+            DK.reset_launches()
+            EK.reset_launches()
+            rvq_kernel.reset_launches()
+            tok, _ = model.encode_stream(p, vq_state, wav, ce,
+                                         megakernel=True)
+            y, _ = model.decode_stream(p, vq_state, tok, cd, megakernel=True)
+            torch.cuda.synchronize()
+            launches = {DK.KERNEL: DK.LAUNCHES[DK.KERNEL],
+                        EK.KERNEL: EK.LAUNCHES[EK.KERNEL],
+                        rvq_kernel.KERNEL:
+                            rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]}
+            cache, zk, toks = em.cache_to_time_major(ce), [], []
+            for f in range(CLIENT_FRAMES):
+                z, cache = em.step(p["encoder"], cache,
+                                   wav[:, :, f * hop:(f + 1) * hop])
+                zk.append(z.float())
+                toks.append(rvq_kernel.quantize(z.transpose(1, 2).float(),
+                                                books))
+            if not torch.equal(torch.cat(toks, -1), tok):
+                raise AssertionError(f"--dtype {mode}: encode_stream("
+                                     f"megakernel=True) gives other tokens "
+                                     f"than its frame kernel's steps")
+            cache, zr = ce, []
+            for f in range(CLIENT_FRAMES):
+                z, cache = model.codec.encoder.step(
+                    p["encoder"], cache, wav[:, :, f * hop:(f + 1) * hop])
+                zr.append(z.float())
+            y_ref, _ = model.decode_stream(p, vq_state, tok, cd)
+        zk = torch.cat(zk, -1).transpose(1, 2).cpu()
+        zr = torch.cat(zr, -1).transpose(1, 2).cpu()
+        own = rvq.token_parity_report(tok, rvq.quantize(zk, books.cpu()), zk,
+                                      books)
+        plain = rvq.token_parity_report(tok, rvq.quantize(zr, books.cpu()),
+                                        zr, books, tie_rel=BF16_TIE_REL)
+        lat, pcm = spacings(zk, zr), spacings(y, y_ref)
+        log(f"[bf16-path] --dtype {mode}: encode_stream / decode_stream("
+            f"megakernel=True) {B} streams x {CLIENT_FRAMES} frames, "
+            f"launches {launches}; tokens equal to those of the encoder "
+            f"frame kernel's steps run again; latents "
+            f"{lat:.2f} bf16 spacings from the plain {act} frame step's "
+            f"(bar {LATENT_SPACINGS}); tokens against the plain cascade of "
+            f"the path's own latents: mismatches {own['mismatches']} (ties "
+            f"{own['ties']}, not ties {own['not_ties']}); against the plain "
+            f"step's tokens: mismatches {plain['mismatches']} of "
+            f"{tok.numel()} (rate {plain['rate']:.2e}), first divergences "
+            f"inside bf16 noise {plain['ties']}, outside "
+            f"{plain['not_ties']} (worst relative distance gap "
+            f"{plain['worst_rel_gap']:.2e}, bar {BF16_TIE_REL:.2e}); PCM on "
+            f"the same tokens {pcm:.2f} bf16 spacings (bar "
+            f"{PATH_PCM_SPACINGS})")
+        if (any(v != CLIENT_FRAMES for v in launches.values())
+                or not own["ok"] or plain["not_ties"]
+                or lat > LATENT_SPACINGS
+                or pcm > PATH_PCM_SPACINGS
+                or not torch.isfinite(y.float()).all()):
+            raise AssertionError(f"--dtype {mode} frame-kernel path: "
+                                 f"{launches} {own} {plain} latents {lat} "
+                                 f"PCM {pcm}")
+        for name in (DK.KERNEL, EK.KERNEL):
+            out[(name, mode)]["launches"] = launches[name]
+    return out
+
+
+def phase_bench_precision():
+    """The bench at 16 and 128 streams, BENCH15_SECONDS of audio, in this
+    process: the flagship plain and --megakernel, and --model audiodec,
+    each at --dtype f32, bf16w and bf16 (one turn each, for the run's
+    time)."""
+    from hilcodec_tpu_torch import bench
+    runs = []
+    for streams in OPTION_STREAMS:
+        base = [str(streams), "--seconds", BENCH15_SECONDS]
+        for extra in ([], ["--megakernel"], ["--model", "audiodec"]):
+            for dtype in ("f32",) + PRECISIONS:
+                runs.append(base + ["--dtype", dtype] + extra)
+    for argv in runs:
+        log(f"[bench-precision] python -m hilcodec_tpu_torch.bench "
+            f"{' '.join(argv)}: {json.dumps(bench.run(argv))}")
+
+
+def tick_ms(model, params, vq_state, slots, dtype, rng):
+    """Engine tick p50 / p99 (ms) over TIMED_TICKS ticks, every slot
+    active, at `dtype`, and the engine."""
+    from hilcodec_tpu_torch.serve import SlotEngine
+    engine = SlotEngine(model, params, vq_state, slots=slots,
+                        mode="roundtrip", fold=False, dtype=dtype,
+                        device=model.device)
+    engine.warmup()
+    for _ in range(slots):
+        engine.attach()
+    hop, times = model.hop_length, []
+    for t in range(TIMED_TICKS + 5):
+        for s in range(slots):
+            engine.submit(s, (rng.standard_normal(hop) * 3000).astype(
+                np.int16))
+        t0 = time.perf_counter()
+        engine.tick()
+        if t >= 5:
+            times.append(time.perf_counter() - t0)
+    return (float(np.percentile(times, 50)) * 1e3,
+            float(np.percentile(times, 99)) * 1e3), engine
+
+
+def phase_ticks_bf16(builds, card):
+    """Engine ticks at 16 and 128 slots for each model of `builds` at
+    dtype bfloat16 beside float32, in turns (f32, bf16) in this run; at
+    128 slots each then under torch.profiler for 10 ticks."""
+    import torch
+    rng = np.random.default_rng(SEED + 15)
+    for tag, (model, params, vq_state) in builds.items():
+        frame_ms = model.hop_length / 24.0
+        for slots in OPTION_STREAMS:
+            res = {}
+            for d in (torch.float32, torch.bfloat16):
+                name = str(d).split(".")[-1]
+                res[name], engine = tick_ms(model, params, vq_state, slots,
+                                            d, rng)
+                if slots == PATH_STREAMS:
+                    profile_ticks(engine, slots, res[name][0] / 1e3, rng,
+                                  tag=f"bf16-ticks {tag} {name}")
+                del engine
+            log(f"[bf16-ticks] {tag} {slots} slots: " + "; ".join(
+                f"{d} tick p50 {a:.2f} ms, p99 {b:.2f} ms"
+                for d, (a, b) in res.items())
+                + f" (frame {frame_ms:.2f} ms; {card})")
+
+
+def write_variant_config(tmp, name, base, **kw):
+    """A temporary yaml: `base`'s config with model_kwargs updated."""
+    import yaml
+    with open(base) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model_kwargs"].update(kw)
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_option_variant(tmp):
+    """The flagship at full width with weight standardization, the
+    learnable STFT in the encoder and channelwise skip scales: a 16-slot
+    engine serves 16 streams x 75 ticks (one RVQ launch a tick), tokens
+    exact or f32 ties against the port's CPU frame loop on the same
+    weights; two finite train steps at batch 2; then the frame kernels on
+    the weight-standardized flagship (identity skips, fixed STFT)."""
+    import torch
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+    from hilcodec_tpu_torch.serve import SlotEngine
+    from hilcodec_tpu_torch.train.loop import step_generator
+    from hilcodec_tpu_torch.train.step import metrics_to_host, to_device
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    cfg = write_variant_config(tmp, "variant", CONFIG,
+                               norm="weight_standardization",
+                               spec_learnable=True, skip="channelwise_scale")
+    model, params, vq_state, _ = build_flagship("cuda", cfg)
+    hop, B = model.hop_length, SERVE_SLOTS
+    engine = SlotEngine(model, params, vq_state, slots=B, fold=False,
+                        device=model.device)
+    pcm = np.stack([client_audio(i, hop) for i in range(B)])
+    slots = [engine.attach() for _ in range(B)]
+    rvq_kernel.reset_launches()
+    toks = []
+    for f in range(CLIENT_FRAMES):
+        for s in slots:
+            engine.submit(s, pcm[s, f * hop:(f + 1) * hop])
+        res = engine.tick()
+        toks.append(np.stack([res[s]["tokens"] for s in slots],
+                             1)[..., None])
+    launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    tok = torch.from_numpy(np.concatenate(toks, -1).astype(np.int64))
+    hps = load_config(cfg)
+    cpu = build_codec_model(hps.model, hps.model_kwargs.to_dict(),
+                            device="cpu")
+    pc, vc = cpu.to_device(params, vq_state)
+    wav = torch.from_numpy(pcm.astype(np.float32) / 32768.0)[:, None]
+    cache, zs = cpu.init_cache(B)[0], []
+    with torch.no_grad():
+        for f in range(CLIENT_FRAMES):
+            z, cache = cpu.codec.encoder.step(
+                pc["encoder"], cache, wav[:, :, f * hop:(f + 1) * hop])
+            zs.append(z)
+        z = torch.cat(zs, -1).transpose(1, 2)
+        ref = rvq.quantize(z, vc["embed"])
+    rep = rvq.token_parity_report(tok, ref, z, vc["embed"])
+    log(f"[variant] weight_standardization + spec_learnable + "
+        f"channelwise_scale, full width: {B} slots x {CLIENT_FRAMES} ticks, "
+        f"rvq_cascade launches {launches}; tokens against the CPU frame "
+        f"loop: mismatches {rep['mismatches']} (ties {rep['ties']}, not "
+        f"ties {rep['not_ties']})")
+    if not rep["ok"] or launches != CLIENT_FRAMES:
+        raise AssertionError(f"option variant serving: {rep}, {launches}")
+    del engine, cpu
+    _, trainer, state = train_setup("cuda", OPTION_TRAIN_BATCH, SEED + 15,
+                                    config=cfg)
+    rng = np.random.default_rng(SEED + 16)
+    host = []
+    for i in range(2):
+        w = to_device(speech_batch(rng, OPTION_TRAIN_BATCH, TRAIN_SEGMENT),
+                      trainer.device)
+        state, m = trainer.train_step(
+            state, w, trainer.sample_draws(step_generator(SEED + 15, i),
+                                           w.shape))
+        host.append(metrics_to_host(m))
+    bad = [(i, k) for i, h in enumerate(host) for k, v in h.items()
+           if k != "num_replaces" and not np.all(np.isfinite(v))]
+    log(f"[variant-train] 2 steps at batch {OPTION_TRAIN_BATCH}: " + "; ".join(
+        ", ".join(f"{k} {v:.4g}" for k, v in h.items()
+                  if k.startswith("loss/")) for h in host))
+    if bad:
+        raise AssertionError(f"option variant training: non-finite {bad}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    ws = write_variant_config(tmp, "ws", CONFIG,
+                              norm="weight_standardization")
+    wmodel, wparams, _, _ = build_flagship("cuda", ws)
+    phase_frame_kernels(wmodel, wparams, batches=(SERVE_SLOTS,),
+                        tag=" (weight standardization)")
+
+
+def phase_export_program(model, params, vq_state, tmp):
+    """`export --program`'s programs on the card at 16 streams: saved,
+    loaded back and stepped for 75 frames; tokens equal to the eager
+    step's, and the RVQ kernel launched by the program once a frame."""
+    import torch
+    from hilcodec_tpu_torch.export import export_programs
+    from hilcodec_tpu_torch.ops import rvq_kernel
+
+    B, hop = EXPORT_STREAMS, model.hop_length
+    t0 = time.perf_counter()
+    written = export_programs(model, params, vq_state,
+                              os.path.join(tmp, "prog"), streams=B)
+    t_export = time.perf_counter() - t0
+    enc = torch.export.load(os.path.join(tmp, "prog_enc.pt2")).module()
+    dec = torch.export.load(os.path.join(tmp, "prog_dec.pt2")).module()
+    wav = torch.from_numpy(np.stack([
+        client_audio(i, hop).astype(np.float32) / 32768.0
+        for i in range(B)])[:, None]).to(model.device)
+    ce, cd = model.init_cache(B)
+    pe, pd = list(ce), list(cd)
+    toks, ref = [], []
+    with torch.no_grad():
+        rvq_kernel.reset_launches()
+        for f in range(CLIENT_FRAMES):
+            out = enc(wav[:, :, f * hop:(f + 1) * hop], *pe)
+            toks.append(out[0])
+            pe = list(out[1:])
+            out = dec(out[0], *pd)
+            pd = list(out[1:])
+        torch.cuda.synchronize()
+        launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        for f in range(CLIENT_FRAMES):
+            t, ce = model.encode_stream(params, vq_state,
+                                        wav[:, :, f * hop:(f + 1) * hop], ce)
+            ref.append(t)
+    same = torch.equal(torch.cat(toks, -1), torch.cat(ref, -1))
+    log(f"[export] --program at {B} streams: "
+        + ", ".join(f"{os.path.basename(k)} {v / 1e6:.1f} MB"
+                    for k, v in written.items())
+        + f", traced and saved in {t_export:.1f} s; loaded back, "
+        f"{CLIENT_FRAMES} dispatches of each: tokens "
+        f"{'equal to' if same else 'DIFFER from'} the eager step's, "
+        f"rvq_cascade launched {launches} times by the program, the "
+        f"decoder's output finite {bool(torch.isfinite(out[0]).all())}")
+    if not same or launches != CLIENT_FRAMES or not torch.isfinite(
+            out[0]).all():
+        raise AssertionError("the exported program disagrees with the "
+                             "eager step or did not launch the RVQ kernel")
+    return launches
+
+
+def phase_encodec_pads(tmp):
+    """EnCodec at full width with pad_mode edge and wrap: one offline
+    encode and decode of 2 x 1 s on the card, finite, tokens exact or f32
+    ties against the port's CPU run on the same weights."""
+    import torch
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    from hilcodec_tpu_torch.ops import rvq
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    for mode in ("edge", "wrap"):
+        cfg = write_variant_config(tmp, f"encodec_{mode}", ENCODEC_CONFIG,
+                                   pad_mode=mode)
+        model, params, vq_state, _ = build_flagship("cuda", cfg)
+        hps = load_config(cfg)
+        cpu = build_codec_model(hps.model, hps.model_kwargs.to_dict(),
+                                device="cpu")
+        pc, vc = cpu.to_device(params, vq_state)
+        wav = torch.from_numpy(np.stack([
+            client_audio(i, model.hop_length) for i in range(2)]
+            ).astype(np.float32)[:, None] / 32768.0)
+        with torch.no_grad():
+            tok = model.encode(params, vq_state, wav.to(model.device))
+            y = model.decode(params, vq_state, tok)
+            z = cpu.codec.encoder.apply(pc["encoder"], wav).transpose(1, 2)
+            ref = rvq.quantize(z, vc["embed"])
+        rep = rvq.token_parity_report(tok, ref, z, vc["embed"])
+        ok = rep["ok"] and bool(torch.isfinite(y).all())
+        log(f"[encodec-pad] pad_mode {mode}: offline encode / decode of "
+            f"2 x {CLIENT_FRAMES} frames on the card, output finite "
+            f"{bool(torch.isfinite(y).all())}; tokens against the CPU: "
+            f"mismatches {rep['mismatches']} (ties {rep['ties']}, not "
+            f"ties {rep['not_ties']})")
+        if not ok:
+            raise AssertionError(f"EnCodec pad_mode {mode}: {rep}")
+
+
+def phase_options(card):
+    """Phase 15: the serving path's precision and model options."""
+    import tempfile
+    import torch
+    from hilcodec_tpu_torch import bench
+
+    t0 = time.perf_counter()
+
+    def done(part):
+        log(f"[time] phase 15 {part} done at "
+            f"{time.perf_counter() - t0:.1f} s into the phase")
+
+    model, params, vq_state, _ = build_flagship("cuda")
+    frames = phase_frame_bf16(model, params, vq_state)
+    done("bf16 frame kernels")
+    with tempfile.TemporaryDirectory() as tmp:
+        export_launches = phase_export_program(model, params, vq_state, tmp)
+        done("export")
+        phase_bench_precision()
+        done("bench")
+        ad = bench.build_audiodec_bench_model(torch.device("cuda"))
+        phase_ticks_bf16({"flagship": (model, params, vq_state),
+                          "audiodec": (ad, *bench.bench_params(ad))}, card)
+        done("ticks")
+        del model, params, vq_state, ad
+        torch.cuda.empty_cache()
+        phase_option_variant(tmp)
+        done("variant")
+        phase_encodec_pads(tmp)
+        done("encodec pads")
+    return {"frames": frames, "export_launches": export_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3054,6 +3613,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     options = phase_train_options(line, train)
     done(14)
+    torch.cuda.empty_cache()
+    serving = phase_options(line)
+    done(15)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -3074,6 +3636,7 @@ def main() -> int:
         "launches_bf16_train_path": options["bf16"]["launches"],
         "launches_remat_train_path": options["remat"]["launches"],
         "launches_bf16_remat_train_path": options["bf16+remat"]["launches"],
+        "launches_export_program": serving["export_launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]
@@ -3147,6 +3710,27 @@ def main() -> int:
             "launches_t4": t4_launches, "ms_t4": t4_ms,
             "plain_ms_t4": t4_plain_ms, "bound_ms_t4": t4_bound[0],
             "bound_t4_by": t4_bound[1]})
+    for mod, replaces in ((decoder_kernel,
+                           "hilcodec_tpu/ops/pallas_decoder.py:490"),
+                          (encoder_kernel,
+                           "hilcodec_tpu/ops/pallas_encoder.py:234")):
+        # the same kernels at --dtype bf16w (bf16 weights, widened when
+        # packed) and bf16 (bf16 input, caches and output too): timed at
+        # 128 streams (16 beside it), launches on the 16-stream path,
+        # errors against the plain version of the same dtype
+        for mode in PRECISIONS:
+            e = serving["frames"][(mod.KERNEL, mode)]
+            ms, plain_ms, (bound_ms, bound_by) = e[PATH_STREAMS]
+            ms16, plain16, (bound16, _) = e[SERVE_SLOTS]
+            kernels.append({
+                "name": f"{mod.KERNEL}@{mode}", "route": "cuda",
+                "source": mod.SOURCE, "replaces": replaces,
+                "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+                "max_bf16_spacings": e["max_spacings"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "ms_b16": ms16, "plain_ms_b16": plain16,
+                "bound_ms_b16": bound16})
     print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

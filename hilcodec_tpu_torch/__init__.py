@@ -32,3 +32,8 @@ def set_f32_parity_mode() -> None:
     would break the waveform parity with the f32 reference."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# registers the operator hilcodec::rvq_cascade, which programs exported
+# from the port (`export --program`) call
+from .ops import rvq_kernel as _rvq_kernel  # noqa: E402,F401

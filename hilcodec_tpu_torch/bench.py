@@ -3,7 +3,8 @@
 Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
       [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
-      [--model hilcodec|encodec|avocodo|audiodec] [--device D]
+      [--model hilcodec|encodec|avocodo|audiodec] [--dtype f32|bf16w|bf16]
+      [--depthwise conv|shift] [--device D]
 
 The model is the operating point of bench.py for its family: HILCodec
 defaults with both res_scale set (the flagship), `--model encodec`,
@@ -18,14 +19,24 @@ per stream: one warm-up call, then 3 timed calls, each ending in a device
 synchronize. --frames F streams F frames a step (`frames_per_step`; the
 audio is cut to a multiple of F frames), as bench.py's --frames does.
 --dispatch times one frame per call instead: blocking p50/p99 and the
-pipelined per-frame cost. Runs on CUDA unless --device names
+pipelined per-frame cost. --dtype is bench.py's precision mode:
+`bf16w` casts the conv kernels (leaves of rank 3 or more) to bf16 and
+keeps f32 activations and caches, `bf16` casts every param, the audio and
+the caches (`models/codec.cast_streaming_params`); the latents reach the
+RVQ kernel in f32 either way. --depthwise takes bench.py's names (`conv`,
+`shift`), which choose how XLA lowers the depthwise convs; both are the
+same function, one convolution here (`ops/conv.DEPTHWISE_LOWERINGS`), so
+the run and its metric do not change. Runs on CUDA unless --device names
 another device, and raises without CUDA.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} with
 vs_baseline = value / 100 (the rebuild target of bench.py). The metric
 names start with `torch_`, apart from bench.py's TPU record, take
-bench.py's `_{model}` suffix for a family other than HILCodec, and the
-unit names the device.
+bench.py's suffixes (`_{model}` for a family other than HILCodec, then
+`_bf16w` / `_bf16`, then the port's `_megakernel`, `_fused` and `_fF`),
+and the unit names the device. --fused and --megakernel do not combine,
+and neither does --fused with --dispatch, which times encode_stream and
+decode_stream.
 """
 
 from __future__ import annotations
@@ -44,16 +55,25 @@ from .models.audiodec import AudioDec
 from .models.avocodo import AvocodoModel
 from .models.codec import CodecModel
 from .models.encodec import EncodecModel
+from .models.codec import cast_streaming_params
 from .models.hilcodec import HILCodec
+from .ops.conv import DEPTHWISE_LOWERINGS
 from .ops.rvq import ResidualVQ
 
 SAMPLE_RATE = 24000
 REPS = 3
 DISPATCH_BLOCKING = 100
 DISPATCH_PIPELINED = 200
-# bench.py options the port does not have yet
-_NOT_PORTED = ("--mesh", "--dtype", "--depthwise", "--unroll", "--chunks")
+# bench.py options the port refuses: slot sharding is not ported yet; the
+# other two tune XLA's scan and mean nothing to an eager PyTorch loop
+_REFUSED = {
+    "--mesh": "is not ported to hilcodec_tpu_torch yet (see ROADMAP.md)",
+    "--unroll": "unrolls the XLA scan of the JAX drivers; the port's "
+                "frame loop is eager PyTorch and has no such knob",
+    "--chunks": "splits the XLA scan's streams into groups; the port's "
+                "frame loop is eager PyTorch and has no such knob"}
 MODELS = ("hilcodec", "encodec", "avocodo", "audiodec")
+DTYPES = ("f32", "bf16w", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +86,7 @@ class Args:
     device: Optional[str] = None
     frames: int = 1
     model: str = "hilcodec"
+    dtype: str = "f32"
 
 
 def _value(argv: List[str], flag: str) -> str:
@@ -79,13 +100,19 @@ def _value(argv: List[str], flag: str) -> str:
 
 def parse_args(argv: List[str]) -> Args:
     """[streams] [--seconds S] [--frames F] [--megakernel|--no-megakernel]
-    [--fused] [--dispatch] [--model M] [--device D]; fails fast on
-    malformed or unported options."""
+    [--fused] [--dispatch] [--model M] [--dtype D] [--depthwise L]
+    [--device D]; fails fast on malformed or refused options."""
     argv = list(argv)
-    for flag in _NOT_PORTED:
+    for flag, why in _REFUSED.items():
         if flag in argv:
-            sys.exit(f"error: {flag} is not ported to hilcodec_tpu_torch yet "
-                     f"(see ROADMAP.md)")
+            sys.exit(f"error: {flag} {why}")
+    dtype = _value(argv, "--dtype") if "--dtype" in argv else "f32"
+    if dtype not in DTYPES:
+        sys.exit(f"error: unknown --dtype {dtype!r} (f32 | bf16w | bf16)")
+    depthwise = (_value(argv, "--depthwise") if "--depthwise" in argv
+                 else "conv")
+    if depthwise not in DEPTHWISE_LOWERINGS:
+        sys.exit(f"error: unknown --depthwise {depthwise!r} (conv | shift)")
     model = "hilcodec"
     if "--model" in argv:
         model = _value(argv, "--model")
@@ -102,6 +129,9 @@ def parse_args(argv: List[str]) -> Args:
     if fused and mega:
         sys.exit("error: --fused has no frame-kernel path "
                  "(encode_decode_stream runs the plain frame step)")
+    if fused and dispatch:
+        sys.exit("error: --dispatch times encode_stream and decode_stream "
+                 "a frame a call; it takes no --fused")
     device = _value(argv, "--device") if "--device" in argv else None
     seconds = 4.0
     if "--seconds" in argv:
@@ -132,7 +162,7 @@ def parse_args(argv: List[str]) -> Args:
     if streams < 1 or len(argv) > 1:
         sys.exit("error: one positive stream count expected")
     return Args(streams, seconds, mega, fused, dispatch, device, frames,
-                model)
+                model, dtype)
 
 
 def _bench_vq(dim: int = 128) -> ResidualVQ:
@@ -165,14 +195,23 @@ def build_audiodec_bench_model(device: torch.device) -> CodecModel:
     return CodecModel(AudioDec(), _bench_vq(dim=64), device)
 
 
-def bench_params(model: CodecModel):
-    """Seeded folded params and N(0, 1) codebooks on the model's device."""
+def bench_params(model: CodecModel, dtype: str = "f32"):
+    """Seeded folded params, cast for the --dtype mode, and N(0, 1)
+    codebooks (f32) on the model's device."""
     gen = torch.Generator().manual_seed(0)
     params = model.fold_params(model.codec.init(gen))
+    if dtype != "f32":
+        params = cast_streaming_params(params, torch.bfloat16,
+                                       kernels_only=dtype == "bf16w")
     vq = model.vq
     books = torch.randn((vq.num_quantizers, vq.codebook_size, vq.dim),
                         generator=gen)
     return model.to_device(params, {"embed": books})
+
+
+def act_dtype(args: Args) -> torch.dtype:
+    """The audio's and the caches' dtype: bf16 under --dtype bf16."""
+    return torch.bfloat16 if args.dtype == "bf16" else torch.float32
 
 
 def _sync(device: torch.device) -> None:
@@ -186,9 +225,10 @@ def _device_name(device: torch.device) -> str:
     return str(device)
 
 
-def _noise(shape, device: torch.device) -> torch.Tensor:
+def _noise(shape, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     gen = torch.Generator().manual_seed(2)
-    return (torch.randn(shape, generator=gen) * 0.3).to(device)
+    return (torch.randn(shape, generator=gen) * 0.3).to(device, dtype)
 
 
 def encode_decode(model: CodecModel, params, vq_state, wav, ce, cd,
@@ -208,6 +248,20 @@ def encode_decode(model: CodecModel, params, vq_state, wav, ce, cd,
     return tok, out, ce, cd
 
 
+def _suffix(args: Args) -> str:
+    """The metric's suffixes for the options of `args`."""
+    out = f"_{args.model}" if args.model != "hilcodec" else ""
+    if args.dtype != "f32":
+        out += f"_{args.dtype}"
+    if args.megakernel:
+        out += "_megakernel"
+    if args.fused:
+        out += "_fused"
+    if args.frames != 1:
+        out += f"_f{args.frames}"
+    return out
+
+
 @torch.no_grad()
 def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     """Aggregate real-time factor of streaming encode+decode."""
@@ -217,9 +271,10 @@ def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     if n_frames < 1:
         sys.exit(f"error: --seconds {args.seconds} is shorter than "
                  f"{f} frame(s)")
-    wav = _noise((args.streams, 1, n_frames * hop), device)
+    dtype = act_dtype(args)
+    wav = _noise((args.streams, 1, n_frames * hop), device, dtype)
     *_, ce, cd = encode_decode(model, params, vq_state, wav,
-                               *model.init_cache(args.streams), args)
+                               *model.init_cache(args.streams, dtype), args)
     _sync(device)                                     # warm-up
     dt = 0.0
     for _ in range(REPS):
@@ -229,15 +284,7 @@ def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
         _sync(device)
         dt += time.perf_counter() - t0
     rtf = args.streams * n_frames * hop / SAMPLE_RATE / (dt / REPS)
-    metric = "torch_streaming_encdec_rtf"
-    if args.model != "hilcodec":
-        metric += f"_{args.model}"
-    if args.megakernel:
-        metric += "_megakernel"
-    if args.fused:
-        metric += "_fused"
-    if f != 1:
-        metric += f"_f{f}"
+    metric = "torch_streaming_encdec_rtf" + _suffix(args)
     block = f", block={f} frames" if f != 1 else ""
     return {"metric": metric, "value": round(rtf, 2),
             "unit": f"x_realtime_24khz (streams={args.streams}, frame={hop} "
@@ -250,7 +297,8 @@ def dispatch_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     """Latency of one frame of encode+decode per call: blocking p50/p99 and
     the pipelined per-call cost (calls queued back to back, one sync)."""
     device, hop = model.device, model.hop_length
-    wav = _noise((args.streams, 1, hop), device)
+    dtype = act_dtype(args)
+    wav = _noise((args.streams, 1, hop), device, dtype)
 
     def one(ce, cd):
         tok, ce = model.encode_stream(params, vq_state, wav, ce,
@@ -259,7 +307,7 @@ def dispatch_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
                                       megakernel=args.megakernel)
         return out, ce, cd
 
-    out, ce, cd = one(*model.init_cache(args.streams))
+    out, ce, cd = one(*model.init_cache(args.streams, dtype))
     _sync(device)
     times = []
     for _ in range(DISPATCH_BLOCKING):
@@ -275,11 +323,7 @@ def dispatch_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     ms = np.asarray(times) * 1e3
     p50, p99 = float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
     frame_ms = hop / SAMPLE_RATE * 1e3
-    metric = "torch_per_dispatch_frame_latency_ms"
-    if args.model != "hilcodec":
-        metric += f"_{args.model}"
-    if args.megakernel:
-        metric += "_megakernel"
+    metric = "torch_per_dispatch_frame_latency_ms" + _suffix(args)
     return {"metric": metric, "value": round(p50, 3),
             "unit": f"ms blocking p50 (streams={args.streams}, "
                     f"frame={frame_ms:.2f} ms; p99={p99:.3f}, "
@@ -299,7 +343,7 @@ def run(argv: List[str]) -> dict:
              "avocodo": build_avocodo_bench_model,
              "audiodec": build_audiodec_bench_model}[args.model]
     model = build(device)
-    params, vq_state = bench_params(model)
+    params, vq_state = bench_params(model, args.dtype)
     bench = dispatch_bench if args.dispatch else stream_bench
     return bench(model, params, vq_state, args)
 

@@ -77,6 +77,19 @@
  *    after __threadfence) sums the S partials in slice order 0..S-1, adds
  *    bias and residual, stores, and resets the counter to 0. No float
  *    atomics: a launch gives the same bits every time.
+ * Storage types: the step's input x, its output y, the aux inputs and the
+ * packed caches are each f32 or bf16 (a flag per group, from the wrapper),
+ * as the Pallas kernel reads whatever dtype its refs hold and widens it to
+ * f32. Everything in between is f32: bf16 is widened where it is loaded
+ * and rounded to nearest even only where a cache or the output is stored.
+ * A bf16 GEMM operand (the decoder's latents, the encoder's log-magnitudes)
+ * takes plain loads widened into the f32 shared tile; the depthwise family
+ * on bf16 caches is a separate out-of-line instance (run_depthwise_bf16),
+ * so the f32 path keeps its register allocation. The weights are always
+ * f32: a bf16 tree (--dtype bf16w / bf16) is widened once, exactly, when
+ * the wrapper packs it (ops/decoder_kernel.py prepare_weights), since the
+ * GEMM's 16-byte cp.async ring and its TF32 splits take f32, and the
+ * weights (26 MB at most) sit in the 50 MB L2 between frames.
  * Depthwise family (dw, dws, convt, post): a thread (a warp for post) takes
  * 4 consecutive channels as float4 and a run of kRun output steps, and
  * loads every input row of the run (transformed once) before its first
@@ -85,9 +98,12 @@
  * channel.
  */
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -112,7 +128,9 @@ enum Kind {
 };
 enum Unary { kElu = 1, kRelu = 2, kTanh = 3, kScale = 4 };
 // how a GEMM operand reaches shared memory
-enum Load { kVec16 = 0, kAsync4 = 1, kPlain = 2 };
+enum Load { kVec16 = 0, kAsync4 = 1, kPlain = 2, kBf16 = 3 };
+// storage-type flags of segment_run's `dtypes`: which tensors are bf16
+enum DtypeBit { kXBf16 = 1, kYBf16 = 2, kAuxBf16 = 4, kCacheBf16 = 8 };
 
 // One phase; the layout of PHASE_DTYPE in ops/decoder_kernel.py. Buffers:
 // -1 is the step's input x (src) or output y (dst), 0..2 a scratch buffer.
@@ -131,16 +149,18 @@ struct Phase {
 };
 static_assert(sizeof(Phase) == 124, "Phase must match PHASE_DTYPE");
 
+// x, y, the caches and the aux inputs hold f32 or bf16 (the flags).
 struct Args {
-  const float* x;
-  float* y;
+  const void* x;
+  void* y;
   float* buf[3];
-  const float* cache_in;
-  float* cache_out;
+  const void* cache_in;
+  void* cache_out;
   const float* weights;
-  const float* aux[kMaxAux];
+  const void* aux[kMaxAux];
   float* ws;       // split-K partial tiles
   int* counters;   // split-K arrivals per tile, 0 between phases
+  bool x_bf16, y_bf16, aux_bf16, cache_bf16;
 };
 
 // The transforms of a phase, read once from its table entry.
@@ -208,12 +228,29 @@ __device__ __forceinline__ float apply1(const Pre& t, float x) {
   return v[0];
 }
 
+// A phase's source and destination as f32; the wrapper's lowering lets a
+// bf16 x or y be read or written only through ld_src / st_dst and the GEMM.
 __device__ __forceinline__ const float* src_of(const Args& a, int s) {
-  return s < 0 ? a.x : a.buf[s];
+  return s < 0 ? static_cast<const float*>(a.x) : a.buf[s];
 }
 
 __device__ __forceinline__ float* dst_of(const Args& a, int s) {
-  return s < 0 ? a.y : a.buf[s];
+  return s < 0 ? static_cast<float*>(a.y) : a.buf[s];
+}
+
+__device__ __forceinline__ float ld_src(const Args& a, int s, int i) {
+  if (s < 0 && a.x_bf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[i]);
+  return src_of(a, s)[i];
+}
+
+__device__ __forceinline__ void st_dst(const Args& a, int s, int i,
+                                       float v) {
+  if (s < 0 && a.y_bf16) {
+    static_cast<__nv_bfloat16*>(a.y)[i] = __float2bfloat16_rn(v);
+  } else {
+    dst_of(a, s)[i] = v;
+  }
 }
 
 __device__ __forceinline__ int gthread() {
@@ -332,6 +369,7 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
 // holding it in registers through its k-loop.
 struct GemmOps {
   const float* A;
+  const __nv_bfloat16* Ah;   // A when it is bf16 (a_mode kBf16)
   const float* W;
   const float* bias;
   const float* R;   // may alias out: each element is read and written by
@@ -346,7 +384,10 @@ __device__ __forceinline__ GemmOps gemm_ops(const Phase& p, const Args& a,
                                             int B) {
   GemmOps g;
   const bool mix = p.kind == kMix;
-  g.A = mix ? a.aux[p.aux] : src_of(a, p.src);
+  const void* A = mix ? a.aux[p.aux] : (p.src < 0 ? a.x : a.buf[p.src]);
+  const bool a_bf16 = mix ? a.aux_bf16 : (p.src < 0 && a.x_bf16);
+  g.A = static_cast<const float*>(A);
+  g.Ah = static_cast<const __nv_bfloat16*>(A);
   g.W = a.weights + p.w;
   g.bias = p.bias >= 0 ? a.weights + p.bias : nullptr;
   g.R = p.res >= 0 ? a.buf[p.res] : nullptr;
@@ -354,8 +395,9 @@ __device__ __forceinline__ GemmOps gemm_ops(const Phase& p, const Args& a,
   g.M = B * p.t_in;
   g.N = p.c_out;
   g.K = p.c_in;
-  g.a_mode = (g.K % 4 == 0 && aligned16(g.A)) ? kVec16
-                                               : (mix ? kAsync4 : kPlain);
+  g.a_mode = a_bf16 ? kBf16
+             : (g.K % 4 == 0 && aligned16(g.A)) ? kVec16
+                                                 : (mix ? kAsync4 : kPlain);
   g.w_vec = g.N % 4 == 0 && aligned16(g.W);
   g.o_vec = g.N % 4 == 0 && aligned16(g.out) &&
             (!g.R || aligned16(g.R)) && (!g.bias || aligned16(g.bias));
@@ -440,11 +482,13 @@ __device__ void gemm(const Phase& p, const Args& a, int B, float* smem,
           const int r = e / kBK, kk = e % kBK;
           const int gm = m0 + r, gk = k0 + kk;
           const bool ok = gm < M && gk < kend;
-          const float* src = ok ? A + (size_t)gm * K + gk : A;
+          const size_t at = ok ? (size_t)gm * K + gk : 0;
           if (op.a_mode == kAsync4) {
-            cp4(As + r * kAPitch + kk, src, ok);
+            cp4(As + r * kAPitch + kk, A + at, ok);
+          } else if (op.a_mode == kBf16) {   // never written in a launch
+            As[r * kAPitch + kk] = ok ? __bfloat162float(op.Ah[at]) : 0.f;
           } else {
-            As[r * kAPitch + kk] = ok ? __ldcg(src) : 0.f;
+            As[r * kAPitch + kk] = ok ? __ldcg(A + at) : 0.f;
           }
         }
       }
@@ -648,11 +692,58 @@ __device__ __forceinline__ void st(float* p, const float (&v)[V]) {
   }
 }
 
+// V bf16 channels at p widened to f32 (8 bytes for V = 4); a bf16 cache
+// is never written in the launch that reads it.
+template <int V>
+__device__ __forceinline__ void ld(float (&v)[V], const __nv_bfloat16* p) {
+  if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+// V values rounded to nearest even into bf16 at p.
+template <int V>
+__device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// The cache element type: f32, or bf16 under the kCacheBf16 flag.
+template <bool CB>
+using CacheT = typename std::conditional<CB, __nv_bfloat16, float>::type;
+
+template <bool CB>
+__device__ __forceinline__ const CacheT<CB>* cache_in_of(const Args& a,
+                                                          const Phase& p) {
+  return static_cast<const CacheT<CB>*>(a.cache_in) + p.cache;
+}
+
+template <bool CB>
+__device__ __forceinline__ CacheT<CB>* cache_out_of(const Args& a,
+                                                    const Phase& p) {
+  return static_cast<CacheT<CB>*>(a.cache_out) + p.cache;
+}
+
 // Row pos of xc = [cache (clen rows); pre(x) (t_in rows)] for stream b,
 // channels c..c+V-1.
-template <int V>
+template <int V, class CT>
 __device__ __forceinline__ void xc_row(float (&v)[V], const Phase& p,
-                                       const Pre& t, const float* cache,
+                                       const Pre& t, const CT* cache,
                                        const float* x, int b, int pos, int c) {
   const int clen = p.cache_len, C = p.c_in;
   if (pos < clen) {
@@ -663,12 +754,14 @@ __device__ __forceinline__ void xc_row(float (&v)[V], const Phase& p,
   }
 }
 
-// Whether a phase of the depthwise family may move float4s.
+// Whether a phase of the depthwise family may move 4 channels at once.
 __device__ __forceinline__ bool vec4_ok(const Phase& p, const Args& a) {
+  const size_t el = a.cache_bf16 ? 2 : 4;   // bytes of a cache element
+  const size_t co = (size_t)(p.cache < 0 ? 0 : p.cache) * el;
+  const uintptr_t ci = reinterpret_cast<uintptr_t>(a.cache_in) + co;
+  const uintptr_t cw = reinterpret_cast<uintptr_t>(a.cache_out) + co;
   return p.c_in % 4 == 0 && aligned16(src_of(a, p.src)) &&
-         aligned16(dst_of(a, p.dst)) &&
-         aligned16(a.cache_in + (p.cache < 0 ? 0 : p.cache)) &&
-         aligned16(a.cache_out + (p.cache < 0 ? 0 : p.cache)) &&
+         aligned16(dst_of(a, p.dst)) && ((ci | cw) & (4 * el - 1)) == 0 &&
          (p.res < 0 || aligned16(a.buf[p.res])) &&
          aligned16(a.weights + p.w) &&
          (p.w2 < 0 || aligned16(a.weights + p.w2)) &&
@@ -676,12 +769,12 @@ __device__ __forceinline__ bool vec4_ok(const Phase& p, const Args& a) {
 }
 
 // New cache: the last cache_len rows of xc.
-template <int V>
+template <int V, bool CB>
 __device__ void write_cache(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
   const int clen = p.cache_len, C = p.c_in, CV = C / V;
-  const float* cin = a.cache_in + p.cache;
-  float* cout = a.cache_out + p.cache;
+  const CacheT<CB>* cin = cache_in_of<CB>(a, p);
+  CacheT<CB>* cout = cache_out_of<CB>(a, p);
   const float* x = src_of(a, p.src);
   const int n = B * clen * CV;
   for (int u = gthread(); u < n; u += gstride()) {
@@ -696,7 +789,7 @@ __device__ void write_cache(const Phase& p, const Args& a, int B) {
 // Output steps t0 + i*d (i < kRun) of stream b. With k <= kTaps every xc
 // row t0 + m*d of the run is loaded (and transformed) once, all before the
 // first product, and feeds taps j = m - i; longer kernels walk the rows.
-template <int V>
+template <int V, bool CB>
 __device__ void depthwise(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
   const int T = p.t_out, C = p.c_in, k = p.k, d = p.d, CV = C / V;
@@ -704,7 +797,7 @@ __device__ void depthwise(const Phase& p, const Args& a, int B) {
   const int span = d * kRun;
   const int groups = (T + span - 1) / span;
   const float* x = src_of(a, p.src);
-  const float* cin = a.cache_in + p.cache;
+  const CacheT<CB>* cin = cache_in_of<CB>(a, p);
   const float* w = a.weights + p.w;
   const float* bias = p.bias >= 0 ? a.weights + p.bias : nullptr;
   const float* r = p.res >= 0 ? a.buf[p.res] : nullptr;
@@ -785,13 +878,13 @@ __device__ void depthwise(const Phase& p, const Args& a, int B) {
 }
 
 // Input steps t0..t0+kRun-1 of stream b, all r phases of each.
-template <int V>
+template <int V, bool CB>
 __device__ void conv_transpose(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
   const int C = p.c_in, r = p.d, T = p.t_in, To = p.t_out, CV = C / V;
   const int groups = (T + kRun - 1) / kRun;
   const float* x = src_of(a, p.src);
-  const float* cin = a.cache_in + p.cache;
+  const CacheT<CB>* cin = cache_in_of<CB>(a, p);
   const float* wa = a.weights + p.w;
   const float* wb = a.weights + p.w2;
   const float* bias = p.bias >= 0 ? a.weights + p.bias : nullptr;
@@ -837,13 +930,13 @@ __device__ void conv_transpose(const Phase& p, const Args& a, int B) {
 // Output steps t0..t0+kRun-1 of stream b: xc frames t0..t0+kRun (s rows
 // each); row j of frame m feeds output m through w[j] and output m-1
 // through w[s+j]. Row j of all kRun + 1 frames is loaded at once.
-template <int V>
+template <int V, bool CB>
 __device__ void strided_depthwise(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
   const int To = p.t_out, C = p.c_in, s = p.d, CV = C / V;
   const int groups = (To + kRun - 1) / kRun;
   const float* x = src_of(a, p.src);
-  const float* cin = a.cache_in + p.cache;
+  const CacheT<CB>* cin = cache_in_of<CB>(a, p);
   const float* w = a.weights + p.w;
   const float* bias = p.bias >= 0 ? a.weights + p.bias : nullptr;
   float* y = dst_of(a, p.dst);
@@ -898,7 +991,6 @@ __device__ void strided_depthwise(const Phase& p, const Args& a, int B) {
 
 __device__ void dense_one_channel(const Phase& p, const Args& a, int B) {
   const int T = p.t_out, Lw = p.t_in, C = p.c_out, k = p.k;
-  const float* x = src_of(a, p.src);
   const float* w = a.weights + p.w;
   const float* bias = p.bias >= 0 ? a.weights + p.bias : nullptr;
   float* y = dst_of(a, p.dst);
@@ -906,10 +998,12 @@ __device__ void dense_one_channel(const Phase& p, const Args& a, int B) {
   for (int i = gthread(); i < n; i += gstride()) {
     const int c = i % C, bt = i / C;
     const int t = bt % T, b = bt / T;
-    const float* row = x + b * Lw + t;
+    const int row = b * Lw + t;
     float acc = 0.f;
 #pragma unroll 4   // the taps' loads issued together, not one at a time
-    for (int j = 0; j < k; ++j) acc += row[j] * w[j * C + c];
+    for (int j = 0; j < k; ++j) {
+      acc += ld_src(a, p.src, row + j) * w[j * C + c];
+    }
     if (bias) acc += bias[c];
     y[i] = acc;
   }
@@ -923,14 +1017,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 // One output channel: y[b, t] = sum_j sum_c xc[t + j, c] w[j, c] (+ bias).
 // A warp takes steps t0..t0+kRun-1 of stream b, its lanes the channels;
 // with k <= kTaps a lane loads its rows of the run all at once.
-template <int V>
+template <int V, bool CB>
 __device__ void post_conv(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
   const int T = p.t_out, C = p.c_in, k = p.k, CV = C / V;
   const int rows = p.cache_len + p.t_in;
   const int groups = (T + kRun - 1) / kRun;
   const float* x = src_of(a, p.src);
-  const float* cin = a.cache_in + p.cache;
+  const CacheT<CB>* cin = cache_in_of<CB>(a, p);
   const float* w = a.weights + p.w;
   float* y = dst_of(a, p.dst);
   const int lane = threadIdx.x & 31;
@@ -998,47 +1092,43 @@ __device__ void post_conv(const Phase& p, const Args& a, int B) {
 __device__ void l2norm(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
   const int C = p.c_in;
-  const float* x = src_of(a, p.src);
-  float* y = dst_of(a, p.dst);
   const int lane = threadIdx.x & 31;
   const int rows = B * p.t_in;
   for (int row = gthread() >> 5; row < rows; row += gstride() >> 5) {
-    const float* xr = x + row * C;
     float ss = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float v = apply1(tf, xr[c]);
+      const float v = apply1(tf, ld_src(a, p.src, row * C + c));
       ss += v * v;
     }
     const float den = fmaxf(sqrtf(warp_sum(ss)), p.eps);
     for (int c = lane; c < C; c += 32) {
-      y[row * C + c] = apply1(tf, xr[c]) / den * p.gain;
+      st_dst(a, p.dst, row * C + c,
+             apply1(tf, ld_src(a, p.src, row * C + c)) / den * p.gain);
     }
   }
 }
 
 __device__ void ewise(const Phase& p, const Args& a, int B) {
   const Pre tf = pre_of(p);
-  const float* x = src_of(a, p.src);
   const float* r = p.res >= 0 ? a.buf[p.res] : nullptr;
-  float* y = dst_of(a, p.dst);
   const int n = B * p.t_in * p.c_in;
   for (int i = gthread(); i < n; i += gstride()) {
-    float v = apply1(tf, x[i]);
+    float v = apply1(tf, ld_src(a, p.src, i));
     if (r) v += r[i];
-    y[i] = v;
+    st_dst(a, p.dst, i, v);
   }
 }
 
 // A depthwise-family phase and its cache write, with float4s where allowed.
-template <int V>
+template <int V, bool CB>
 __device__ void depthwise_family(const Phase& p, const Args& a, int B) {
   switch (p.kind) {
-    case kDw: depthwise<V>(p, a, B); break;
-    case kConvT: conv_transpose<V>(p, a, B); break;
-    case kPost: post_conv<V>(p, a, B); break;
-    default: strided_depthwise<V>(p, a, B); break;
+    case kDw: depthwise<V, CB>(p, a, B); break;
+    case kConvT: conv_transpose<V, CB>(p, a, B); break;
+    case kPost: post_conv<V, CB>(p, a, B); break;
+    default: strided_depthwise<V, CB>(p, a, B); break;
   }
-  write_cache<V>(p, a, B);
+  write_cache<V, CB>(p, a, B);
 }
 
 // Out of line, as run_gemm: the phase loop holds nothing in registers
@@ -1046,9 +1136,19 @@ __device__ void depthwise_family(const Phase& p, const Args& a, int B) {
 __device__ __noinline__ void run_depthwise(const Phase& p, const Args& a,
                                            int B) {
   if (vec4_ok(p, a)) {
-    depthwise_family<4>(p, a, B);
+    depthwise_family<4, false>(p, a, B);
   } else {
-    depthwise_family<1>(p, a, B);
+    depthwise_family<1, false>(p, a, B);
+  }
+}
+
+// The same on bf16 caches, with an allocation of its own.
+__device__ __noinline__ void run_depthwise_bf16(const Phase& p,
+                                                const Args& a, int B) {
+  if (vec4_ok(p, a)) {
+    depthwise_family<4, true>(p, a, B);
+  } else {
+    depthwise_family<1, true>(p, a, B);
   }
 }
 
@@ -1075,7 +1175,13 @@ segment_kernel(const Phase* __restrict__ phases, int n_phases,
       case kDw:
       case kConvT:
       case kPost:
-      case kDws: run_depthwise(p, a, B); break;
+      case kDws:
+        if (a.cache_bf16) {
+          run_depthwise_bf16(p, a, B);
+        } else {
+          run_depthwise(p, a, B);
+        }
+        break;
       case kDense1ch: dense_one_channel(p, a, B); break;
       case kL2norm: l2norm(p, a, B); break;
       default: break;
@@ -1125,14 +1231,17 @@ int segment_grid(int* blocks) {
 // weights: the packed weights; aux: up to 8 aux inputs (the encoder's
 // log-magnitudes); ws: the split-K workspace (the largest splits x tiles x
 // BM x BN of a phase); counters: one int per tile of the largest split
-// phase, all 0 (the kernel leaves them 0). All f32 except counters,
-// contiguous, on the current device. Launches on `stream` and returns the
-// cudaError_t of the launch (0 on success).
-int segment_run(const void* phases, int n_phases, const float* x, float* y,
-                float* buf0, float* buf1, float* buf2, const float* cache_in,
-                float* cache_out, const float* weights,
+// phase, all 0 (the kernel leaves them 0). dtypes: the DtypeBit flags of
+// x, y, the aux inputs and the caches that hold bf16 (the rest f32); the
+// wrapper's lowering reads a bf16 x only in a pw, dense1ch or ewise phase
+// and writes a bf16 y only in an ewise or l2norm phase. Everything else
+// f32, counters int; contiguous, on the current device. Launches on
+// `stream` and returns the cudaError_t of the launch (0 on success).
+int segment_run(const void* phases, int n_phases, const void* x, void* y,
+                float* buf0, float* buf1, float* buf2, const void* cache_in,
+                void* cache_out, const float* weights,
                 const void* const* aux, int n_aux, float* ws, int* counters,
-                int B, int blocks, void* stream) {
+                int B, int blocks, int dtypes, void* stream) {
   if (n_phases <= 0 || B <= 0) return 0;
   if (n_aux < 0 || n_aux > kMaxAux || blocks <= 0)
     return (int)cudaErrorInvalidValue;
@@ -1146,9 +1255,13 @@ int segment_run(const void* phases, int n_phases, const float* x, float* y,
   a.cache_out = cache_out;
   a.weights = weights;
   for (int i = 0; i < kMaxAux; ++i)
-    a.aux[i] = i < n_aux ? static_cast<const float*>(aux[i]) : nullptr;
+    a.aux[i] = i < n_aux ? aux[i] : nullptr;
   a.ws = ws;
   a.counters = counters;
+  a.x_bf16 = dtypes & kXBf16;
+  a.y_bf16 = dtypes & kYBf16;
+  a.aux_bf16 = dtypes & kAuxBf16;
+  a.cache_bf16 = dtypes & kCacheBf16;
   const Phase* table = static_cast<const Phase*>(phases);
   void* params[] = {(void*)&table, (void*)&n_phases, (void*)&a, (void*)&B};
   cudaError_t e = cudaLaunchCooperativeKernel(

@@ -208,9 +208,6 @@ class AvocodoModel:
     vq_dim: int = 128
 
     def __post_init__(self):
-        if self.spec_learnable:
-            raise NotImplementedError(
-                "spec_learnable is not ported yet (see ROADMAP.md)")
         enc = Encoder(
             self.channels_audio, self.vq_dim, self.channels_enc,
             self.n_fft_base, self.n_residual_enc, tuple(self.strides),
@@ -218,6 +215,7 @@ class AvocodoModel:
             self.residual_kernel_size, self.dilation_base, self.skip,
             act_all=self.act_all, l2norm=self.encoder_l2norm,
             spec=self.spec, spec_compression=self.spec_compression,
+            spec_learnable=self.spec_learnable,
             res_scale=self.res_scale_enc)
         dec = AvocodoDecoder(
             self.channels_audio, self.vq_dim, self.channels_dec,

@@ -18,7 +18,10 @@ version for CPU tensors only. The streaming drivers take
 as one launch of the encoder / decoder frame kernel; it is off by default,
 as in the JAX package, whose automatic choice never selects it, and a
 codec the frame kernels do not cover (EnCodec, Avocodo, AudioDec) raises
-for it.
+for it. `cast_streaming_params` is the deployment precision cast of the
+JAX package (`--dtype bf16w` / `bf16` of the bench): the streaming drivers
+take their activation dtype from the caches, and the latents reach the
+quantizer in f32 whatever the dtype, so token identity is decided in f32.
 """
 
 from __future__ import annotations
@@ -48,6 +51,25 @@ def _decoder_megakernel(decoder) -> decoder_kernel.DecoderMegakernel:
 @functools.lru_cache(maxsize=16)
 def _encoder_megakernel(encoder) -> encoder_kernel.EncoderMegakernel:
     return encoder_kernel.EncoderMegakernel(encoder)
+
+
+def cast_streaming_params(params: Params, dtype=torch.bfloat16,
+                          kernels_only: bool = True) -> Params:
+    """Deployment-time precision cast of a folded param tree: leaves of
+    rank 3 or more (the conv kernels, nearly all the bytes) with
+    kernels_only, every leaf without. Under `bf16w` (kernels only, f32
+    activations) each conv widens its bf16-rounded weight to the input's
+    dtype, so the arithmetic stays f32; `bf16` casts everything. The RVQ
+    codebooks are not in this tree and stay f32."""
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(leaf(v) for v in x)
+        if x.ndim >= 3 or not kernels_only:
+            return x.to(dtype)
+        return x
+    return leaf(params)
 
 
 def residual_vq(vq_kwargs: Dict[str, Any]) -> Q.ResidualVQ:
@@ -178,7 +200,7 @@ class CodecModel:
         """wav [B, 1, T] -> tokens [n, B, T/hop] (int32)."""
         books = self._books(vq_state)
         z = self.codec.encoder.apply(params["encoder"], wav)
-        return rvq_kernel.quantize(z.transpose(1, 2), books, n)
+        return rvq_kernel.quantize(z.transpose(1, 2).float(), books, n)
 
     def decode(self, params: Params, vq_state: Q.VQState,
                tokens: torch.Tensor):
@@ -225,7 +247,8 @@ class CodecModel:
         toks = []
         for x in self._blocks(wav, frames_per_step):
             z, cache = step(params["encoder"], cache, x)
-            toks.append(rvq_kernel.quantize(z.transpose(1, 2), books, n))
+            toks.append(rvq_kernel.quantize(z.transpose(1, 2).float(), books,
+                                            n))
         if megakernel:
             cache = mk.cache_from_time_major(cache)
         return torch.cat(toks, dim=-1), cache
@@ -278,7 +301,7 @@ class CodecModel:
         for x in self._blocks(wav, frames_per_step):
             z, cache_enc = self.codec.encoder.step(params["encoder"],
                                                    cache_enc, x)
-            idx = rvq_kernel.quantize(z.transpose(1, 2), books, n)
+            idx = rvq_kernel.quantize(z.transpose(1, 2).float(), books, n)
             q = Q.dequantize(idx, books).to(dtype)
             y, cache_dec = self.codec.decoder.step(params["decoder"],
                                                    cache_dec,

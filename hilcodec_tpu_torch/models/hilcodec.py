@@ -59,6 +59,7 @@ class Encoder:
     bias: bool = True
     spec: str = "stft"
     spec_compression: str = "log"
+    spec_learnable: bool = False
     res_scale: Optional[float] = None
     wav_std: float = WAV_STD
     spec_means: Tuple[float, ...] = SPEC_MEANS
@@ -93,6 +94,7 @@ class Encoder:
                 spec_block = L.SpecBlock(
                     mult * self.n_fft_base, mult * self.n_filters, stride,
                     norm=self.norm, bias=False,
+                    learnable=self.spec_learnable,
                     compression=self.spec_compression,
                     mean=self.spec_means[bi], std=self.spec_stds[bi],
                     res_scale=self.res_scale, zero_init=self.zero_init,
@@ -113,7 +115,7 @@ class Encoder:
         if self.spec == "stft":
             spec_post = L.SpecBlock(
                 mult * self.n_fft_base, mult * self.n_filters, stride,
-                norm=self.norm, bias=False,
+                norm=self.norm, bias=False, learnable=self.spec_learnable,
                 compression=self.spec_compression, mean=self.spec_means[-1],
                 std=self.spec_stds[-1], res_scale=self.res_scale,
                 zero_init=self.zero_init, inout_norm=self.inout_norm)
@@ -158,7 +160,7 @@ class Encoder:
         folded = "w" in params["conv_pre"]
         wav = x
         if self.inout_norm and not folded:
-            x = x * (1.0 / self.wav_std)
+            x = L.scale_as(x, 1.0 / self.wav_std)
         x = self.conv_pre.apply(params["conv_pre"], x)
         for (spec, blocks, pw, dw), sp in zip(self.stages, params["stages"]):
             if spec is not None:
@@ -166,7 +168,7 @@ class Encoder:
             for blk, bp in zip(blocks, sp["blocks"]):
                 x = blk.apply(bp, x)
             if self.stage_scale is not None:
-                x = x * self.stage_scale
+                x = L.scale_as(x, self.stage_scale)
             x = pw.apply(sp["down_pw"], self._act(x))
             x = dw.apply(sp["down_dw"], x)
         if self.spec_post is not None:
@@ -199,7 +201,7 @@ class Encoder:
 
         x = wav[:, :, wcl - (self.kernel_size - 1):]
         if self.inout_norm and not folded:
-            x = x * (1.0 / self.wav_std)
+            x = L.scale_as(x, 1.0 / self.wav_std)
         x = self.conv_pre.apply_nopad(params["conv_pre"], x)
 
         i = 1
@@ -212,7 +214,7 @@ class Encoder:
                 new_cache.extend(c)
                 i += n
             if self.stage_scale is not None:
-                x = x * self.stage_scale
+                x = L.scale_as(x, self.stage_scale)
             x = pw.apply(sp["down_pw"], self._act(x))
             x, c = dw.step(sp["down_dw"], cache[i:i + 1], x)
             new_cache.extend(c)
@@ -343,10 +345,10 @@ class Decoder:
             for blk, bp in zip(blocks, sp["blocks"]):
                 x = blk.apply(bp, x)
             if self.stage_scale is not None:
-                x = x * self.stage_scale
+                x = L.scale_as(x, self.stage_scale)
         x = self.conv_post.apply(params["conv_post"], self._act(x))
         if self.inout_norm and not folded:
-            x = x * self.wav_std
+            x = L.scale_as(x, self.wav_std)
         return self._final_act(x)
 
     def init_cache(self, batch: int, dtype=torch.float32,
@@ -380,12 +382,12 @@ class Decoder:
                 new_cache.extend(c)
                 i += n
             if self.stage_scale is not None:
-                x = x * self.stage_scale
+                x = L.scale_as(x, self.stage_scale)
         x, c = self.conv_post.step(params["conv_post"], cache[i:i + 1],
                                    self._act(x))
         new_cache.extend(c)
         if self.inout_norm and not folded:
-            x = x * self.wav_std
+            x = L.scale_as(x, self.wav_std)
         return self._final_act(x), new_cache
 
     def fold_params(self, params: Params) -> Params:
@@ -451,9 +453,6 @@ class HILCodec:
             raise ValueError(
                 f"HILCodec pad_mode={self.pad_mode!r} is not supported: "
                 "the causal streaming cache is equivalent to zero padding")
-        if self.spec_learnable:
-            raise NotImplementedError(
-                "spec_learnable is not ported yet (see ROADMAP.md)")
         enc = Encoder(
             self.channels_audio, self.vq_dim, self.channels_enc,
             self.n_fft_base, self.n_residual_enc, tuple(self.strides),
@@ -463,6 +462,7 @@ class HILCodec:
             act_all=self.act_all, expansion=self.expansion,
             groups=self.groups, l2norm=self.encoder_l2norm, bias=self.bias,
             spec=self.spec, spec_compression=self.spec_compression,
+            spec_learnable=self.spec_learnable,
             res_scale=self.res_scale_enc, zero_init=self.zero_init,
             inout_norm=self.inout_norm)
         dec = Decoder(

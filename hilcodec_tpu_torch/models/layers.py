@@ -63,6 +63,15 @@ def kaiming_normal(gen: torch.Generator, shape: Tuple[int, ...], fan_in: int,
     return torch.randn(shape, generator=gen) * (gain / math.sqrt(fan_in))
 
 
+def scale_as(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x * s with s first rounded to x's dtype, as the JAX package's
+    `x * jnp.asarray(s, x.dtype)` (exact in f32; in bf16 the product of
+    two bf16 values rounded once)."""
+    if x.dtype != torch.float32:
+        s = float(torch.tensor(s, dtype=x.dtype))
+    return x * s
+
+
 def _zeros_cache(batch, channels, length, dtype, device) -> Cache:
     return [torch.zeros((batch, channels, length), dtype=dtype,
                         device=device)]
@@ -254,12 +263,18 @@ class DWSBlock:
 # Residual block
 # ---------------------------------------------------------------------------
 
+SKIPS = ("identity", "1x1", "scale", "exp_scale", "channelwise_scale")
+
+
 @dataclasses.dataclass(frozen=True)
 class ResBlock:
-    """Variance-constrained residual unit with an identity skip:
-    y = x + res_scale * res_scale_param * block(x * pre_scale), with
-    pre_scale = (1 + idx * res_scale^2)^-1/2. Folding absorbs the residual
-    scale into the last depthwise conv."""
+    """Variance-constrained residual unit:
+    y = skip(x) + res_scale * res_scale_param * block(x * pre_scale), with
+    pre_scale = (1 + idx * res_scale^2)^-1/2. The skip is the identity, a
+    1x1 conv (`shortcut`), or x times `skip_scale`: a scalar (`scale`,
+    init 1), its exp (`exp_scale`, init 0) or one per channel
+    (`channelwise_scale`, init 1). Folding absorbs the residual scale into
+    the last depthwise conv and folds the shortcut conv."""
     dim: int
     kernel_size: int = 3
     dilations: Tuple[int, ...] = (1, 1)
@@ -276,10 +291,9 @@ class ResBlock:
     zero_init: bool = True
 
     def __post_init__(self):
-        if self.skip != "identity":
-            raise NotImplementedError(
-                f"ResBlock skip={self.skip!r} is not ported yet "
-                "(see ROADMAP.md)")
+        if self.skip not in SKIPS:
+            raise ValueError(f"unknown ResBlock skip {self.skip!r} "
+                             f"(one of {', '.join(SKIPS)})")
         object.__setattr__(self, "blocks", tuple(
             DWSBlock(self.activation, self.activation_params, self.dim,
                      self.dim, self.kernel_size, dilation=d, norm=self.norm,
@@ -289,12 +303,34 @@ class ResBlock:
         object.__setattr__(self, "pre_scale",
                            (1 + self.idx * self.res_scale ** 2) ** -0.5
                            if self.res_scale is not None else None)
+        object.__setattr__(self, "shortcut",
+                           Conv1d(self.dim, self.dim, 1, norm=self.norm,
+                                  bias=self.bias)
+                           if self.skip == "1x1" else None)
 
     def init(self, gen: torch.Generator) -> Params:
         p: Params = {"blocks": [b.init(gen) for b in self.blocks]}
         if self.zero_init:
             p["res_scale_param"] = torch.zeros(1)
+        if self.skip == "1x1":
+            p["shortcut"] = self.shortcut.init(gen)
+        elif self.skip == "scale":
+            p["skip_scale"] = torch.ones((1, 1, 1))
+        elif self.skip == "exp_scale":
+            p["skip_scale"] = torch.zeros((1, 1, 1))
+        elif self.skip == "channelwise_scale":
+            p["skip_scale"] = torch.ones((1, self.dim, 1))
         return p
+
+    def _shortcut(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.skip == "identity":
+            return x
+        if self.skip == "1x1":
+            return self.shortcut.apply(params["shortcut"], x)
+        scale = params["skip_scale"].to(x.dtype)
+        if self.skip == "exp_scale":
+            scale = torch.exp(scale)
+        return scale * x
 
     def _res_scale(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         scale = 1.0 if self.res_scale is None else self.res_scale
@@ -307,9 +343,9 @@ class ResBlock:
         return "res_scale_param" not in params and self.zero_init
 
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        skip = x
+        skip = self._shortcut(params, x)
         if self.pre_scale is not None:
-            x = x * self.pre_scale
+            x = scale_as(x, self.pre_scale)
         for blk, bp in zip(self.blocks, params["blocks"]):
             x = blk.apply(bp, x)
         if not self._folded(params):
@@ -323,9 +359,9 @@ class ResBlock:
 
     def step(self, params: Params, cache: Cache, x: torch.Tensor
              ) -> Tuple[torch.Tensor, Cache]:
-        skip = x
+        skip = self._shortcut(params, x)
         if self.pre_scale is not None:
-            x = x * self.pre_scale
+            x = scale_as(x, self.pre_scale)
         new_cache: Cache = []
         i = 0
         for blk, bp in zip(self.blocks, params["blocks"]):
@@ -338,9 +374,14 @@ class ResBlock:
         return x + skip, new_cache
 
     def fold(self, params: Params) -> Params:
-        """Absorb res_scale * res_scale_param into the last depthwise conv."""
+        """Absorb res_scale * res_scale_param into the last depthwise conv;
+        fold the shortcut conv, keep `skip_scale`."""
         out: Params = {"blocks": [b.fold(p) for b, p in
                                   zip(self.blocks, params["blocks"])]}
+        if self.skip == "1x1":
+            out["shortcut"] = self.shortcut.fold(params["shortcut"])
+        elif self.skip != "identity":
+            out["skip_scale"] = params["skip_scale"]
         if "res_scale_param" in params:
             scale = ((1.0 if self.res_scale is None else self.res_scale)
                      * params["res_scale_param"][0])
@@ -359,12 +400,16 @@ class ResBlock:
 class SpecBlock:
     """Causal log-magnitude STFT of the raw wav, fixed normalization, 1x1
     conv, zero-init scale, residual add. In streaming mode the caller
-    passes the wav suffix from the shared ring (n_fft-1 + hop*L samples)."""
+    passes the wav suffix from the shared ring (n_fft-1 + hop*L samples).
+    `learnable`: the STFT is a strided conv with the `basis` parameter
+    [n_fft+2, 1, n_fft], initialized to the windowed DFT basis; folding
+    keeps it."""
     n_fft: int
     channels: int
     stride: int          # STFT hop
     norm: str = R.WEIGHT_NORM
     bias: bool = False
+    learnable: bool = False
     compression: str = "log"
     mean: float = 0.0
     std: float = 1.0
@@ -385,10 +430,17 @@ class SpecBlock:
         p: Params = {"layer": self.layer.init(gen)}
         if self.zero_init:
             p["scale_param"] = torch.zeros(1)
+        if self.learnable:
+            p["basis"] = torch.from_numpy(S.causal_stft_basis(self.n_fft))
         return p
 
-    def _spec(self, wav: torch.Tensor, pad: bool) -> torch.Tensor:
-        y = S.causal_stft_mag(wav, self.n_fft, self.stride, pad=pad)
+    def _spec(self, wav: torch.Tensor, pad: bool,
+              basis: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The compressed magnitudes; `basis` is the learnable STFT's."""
+        if self.learnable:
+            y = S.causal_stft_mag_learnable(wav, basis, self.stride, pad=pad)
+        else:
+            y = S.causal_stft_mag(wav, self.n_fft, self.stride, pad=pad)
         if self.compression == "log":
             y = torch.log(torch.clamp(y, min=1e-5))
         elif self.compression:
@@ -413,11 +465,13 @@ class SpecBlock:
 
     def apply(self, params: Params, x: torch.Tensor,
               wav: torch.Tensor) -> torch.Tensor:
-        return self._mix(params, x, self._spec(wav, pad=True))
+        return self._mix(params, x,
+                         self._spec(wav, True, params.get("basis")))
 
     def step(self, params: Params, x: torch.Tensor,
              wav_suffix: torch.Tensor) -> torch.Tensor:
-        return self._mix(params, x, self._spec(wav_suffix, pad=False))
+        return self._mix(params, x,
+                         self._spec(wav_suffix, False, params.get("basis")))
 
     def fold(self, params: Params) -> Params:
         """Fold mean/std normalization and the scale into the 1x1 conv."""
@@ -434,7 +488,10 @@ class SpecBlock:
         scale = 1.0 if self.res_scale is None else self.res_scale
         if "scale_param" in params:
             scale = scale * params["scale_param"][0]
-        return {"layer": {"w": w * scale, "b": b * scale}}
+        out: Params = {"layer": {"w": w * scale, "b": b * scale}}
+        if self.learnable:
+            out["basis"] = params["basis"]
+        return out
 
 
 def l2norm(x: torch.Tensor, channels: int, eps: float = 1e-12,

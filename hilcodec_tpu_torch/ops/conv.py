@@ -11,10 +11,18 @@ The semantics are the JAX package's, not torch's `SConvTranspose1d` trim:
     full transposed conv cut at L*s (the JAX right pad is s-1 on an
     lhs-dilated conv); a streaming step keeps floor(d(k-1)/s) input
     frames and drops the first cache_len*s output samples.
-`pad_mode="reflect"` (the EnCodec family's default) pads the batched conv
-by reflection as `jnp.pad(mode="reflect")` does, which follows numpy and
-reflects again when the pad is as long as the input or longer (torch's
-`F.pad` raises there); the streaming step keeps zero caches either way.
+`pad_mode` pads the batched conv as `jnp.pad(x, ..., mode=pad_mode)` does,
+for every mode that needs no extra argument (`pad1d`): "reflect" (the
+EnCodec family's default), "symmetric" and "wrap" extend the input
+periodically, so a pad as long as the input or longer is defined (torch's
+`F.pad` raises there); "edge", "linear_ramp" (to zero), "maximum",
+"minimum", "mean" and "median" (over the whole axis) follow numpy. The
+streaming step keeps zero caches in every mode, as the JAX step does.
+The JAX package's `set_depthwise_lowering` chooses how XLA lowers a
+depthwise conv ("conv", or "shift": k shifted multiply-adds, a tuning of
+TPU autodiff); both compute the same function, so the port takes either
+name (`DEPTHWISE_LOWERINGS`, from `train.depthwise_lowering` and the
+bench's `--depthwise`) and runs the convolution.
 These are plain cuDNN / ATen convolutions (the JAX package runs them as
 XLA convolutions, not as Pallas kernels). On the CPU, no form may let a
 row's result depend on the batch, so that a stream gives the same bits
@@ -40,6 +48,9 @@ import torch.nn.functional as F
 
 # rows per product in row_matmul on the CPU
 ROW_BLOCK = 16
+
+# the JAX package's depthwise lowerings (XLA's choice): one convolution here
+DEPTHWISE_LOWERINGS = ("conv", "shift")
 
 
 class _RowMatmul(torch.autograd.Function):
@@ -155,17 +166,71 @@ def reflect_index(length: int, left: int, right: int,
     return torch.where(m < length, m, period - m)
 
 
+# np.pad's modes that take no extra argument, as jnp.pad passes them on;
+# "empty" is left out: its values are undefined
+PAD_MODES = ("constant", "edge", "linear_ramp", "maximum", "mean", "median",
+             "minimum", "reflect", "symmetric", "wrap")
+
+
+def _periodic_index(length: int, left: int, right: int, mode: str,
+                    device=None) -> torch.Tensor:
+    """Source indices of numpy's reflect / symmetric / wrap pad: the input
+    extended periodically, so a pad of any length is defined."""
+    i = torch.arange(-left, length + right, device=device)
+    if mode == "wrap":
+        return torch.remainder(i, length)
+    if mode == "symmetric":
+        m = torch.remainder(i, 2 * length)
+        return torch.where(m < length, m, 2 * length - 1 - m)
+    return reflect_index(length, left, right, device)
+
+
+def _stat(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """The statistic of the whole last axis that a stat mode pads with."""
+    if mode == "maximum":
+        return x.amax(-1, keepdim=True)
+    if mode == "minimum":
+        return x.amin(-1, keepdim=True)
+    if mode == "mean":
+        return x.mean(-1, keepdim=True)
+    s = x.sort(-1).values              # median: the mean of the middle two
+    n = x.shape[-1]
+    return (s[..., (n - 1) // 2:(n - 1) // 2 + 1]
+            + s[..., n // 2:n // 2 + 1]) / 2
+
+
 def pad1d(x: torch.Tensor, padding: Tuple[int, int],
           mode: str = "constant") -> torch.Tensor:
-    """Pad the last axis by (left, right): zeros, or numpy's reflect (an
-    index gather, defined for pads of any length)."""
+    """Pad the last axis by (left, right) as `jnp.pad(mode=mode)` does:
+    zeros; numpy's reflect, symmetric or wrap (an index gather, defined for
+    pads of any length); the edge value; a linear ramp from the edge value
+    to zero; or the maximum, minimum, mean or median of the whole axis."""
+    left, right = padding
     if mode in ("constant", "zeros"):
         return F.pad(x, padding)
-    if mode != "reflect":
-        raise NotImplementedError(f"pad_mode {mode!r} is not ported yet "
-                                  f"(see ROADMAP.md)")
-    return x.index_select(-1, reflect_index(x.shape[-1], *padding,
-                                            device=x.device))
+    if mode == "empty":
+        raise ValueError("pad_mode 'empty' leaves the pad's values "
+                         "undefined; choose one of " + ", ".join(PAD_MODES))
+    if mode not in PAD_MODES:
+        raise ValueError(f"unknown pad_mode {mode!r}; choose one of "
+                         + ", ".join(PAD_MODES))
+    L = x.shape[-1]
+    if mode in ("reflect", "symmetric", "wrap"):
+        return x.index_select(-1, _periodic_index(L, left, right, mode,
+                                                  x.device))
+    if mode == "edge":
+        i = torch.arange(-left, L + right, device=x.device).clamp(0, L - 1)
+        return x.index_select(-1, i)
+    if mode == "linear_ramp":
+        # np.linspace(0, edge, pad, endpoint=False), mirrored on the right
+        def ramp(edge, n):
+            return edge * (torch.arange(n, dtype=x.dtype, device=x.device)
+                           / n)
+        return torch.cat([ramp(x[..., :1], left), x,
+                          ramp(x[..., -1:], right).flip(-1)], dim=-1)
+    v = _stat(x, mode)
+    return torch.cat([v.expand(*x.shape[:-1], left), x,
+                      v.expand(*x.shape[:-1], right)], dim=-1)
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -173,8 +238,8 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   dilation: int = 1, groups: int = 1,
                   pad_mode: str = "constant") -> torch.Tensor:
     """Batched causal conv: left-pad d*(k-1)-(s-1), right-pad to a full
-    last window; zero padding (`pad_mode: constant`, the flagship's) or
-    numpy's reflect (`reflect`, the EnCodec family's)."""
+    last window; zero padding (`pad_mode: constant`, the flagship's) or any
+    other mode of `pad1d` (`reflect`, the EnCodec family's default)."""
     k = w.shape[-1]
     pad_total = causal_pad_total(k, stride, dilation)
     extra = extra_pad_for_full_windows(x.shape[-1], k, stride, pad_total)

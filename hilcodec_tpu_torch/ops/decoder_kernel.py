@@ -21,7 +21,12 @@ before it.
 `step` runs the kernel for CUDA tensors and the plain version for CPU
 tensors; a CUDA tensor launches the kernel or raises. Weights are taken
 from the folded param tree only (unfolded params raise) and prepared once
-per tree, not per frame.
+per tree, not per frame; a bf16 tree (`cast_streaming_params`) is widened
+to f32 there, exactly. The step's input, the aux inputs and the caches
+may be f32 or bf16, as the JAX kernel reads whatever its refs hold: both
+versions widen them to f32, compute in f32 and round to the caches' dtype
+where a cache is stored, and the output comes back in the input's dtype
+(the plain frame step's; JAX's Pallas step always returns f32).
 """
 
 from __future__ import annotations
@@ -253,7 +258,10 @@ def run_plain(ops: Sequence[Op], weights: Sequence[Optional[Dict]],
 
     x: [B, T, C], or the raw wav window [B, k-1+T] of a dense1ch op;
     aux: the mix ops' inputs [B, T_s, F]; caches: time-major [B, L, C] in
-    slot order. Returns (y [B, T', C'], new caches)."""
+    slot order. Returns (y [B, T', C'], new caches). Inputs and caches
+    are widened to f32; each new cache is rounded to its cache's dtype
+    and y to x's."""
+    out_dtype = x.dtype
     x = x.float()
     if x.ndim == 2:
         x = x[:, :, None]
@@ -262,9 +270,10 @@ def run_plain(ops: Sequence[Op], weights: Sequence[Optional[Dict]],
     skip = None
 
     def with_cache(op):
-        xc = torch.cat([caches[op.cache_slot].float(), x], dim=1)
-        clen = caches[op.cache_slot].shape[1]
-        new[op.cache_slot] = xc[:, xc.shape[1] - clen:]
+        cache = caches[op.cache_slot]
+        xc = torch.cat([cache.float(), x], dim=1)
+        new[op.cache_slot] = xc[:, xc.shape[1] - cache.shape[1]:].to(
+            cache.dtype)
         return xc
 
     for op, w in zip(ops, weights):
@@ -343,7 +352,7 @@ def run_plain(ops: Sequence[Op], weights: Sequence[Optional[Dict]],
                 x = x * math.sqrt(a["c"])
         else:
             raise ValueError(op.kind)
-    return x, [new[s] for s in range(len(caches))]
+    return x.to(out_dtype), [new[s] for s in range(len(caches))]
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +469,8 @@ def cache_layout(cache_shapes: Sequence[Tuple[int, int]], B: int
 
 def build_phases(ops: Sequence[Op], offsets: Sequence[Optional[Dict]],
                  cache_shapes: Sequence[Tuple[int, int]], B: int, t: int,
-                 c: int, grid: int) -> Tuple[np.ndarray, int]:
+                 c: int, grid: int, out_ewise: bool = False
+                 ) -> Tuple[np.ndarray, int]:
     """Lower the op list to the kernel's phase table for B streams of input
     (t, c) per stream on a grid of `grid` blocks. Returns (phases, the
     largest activation of a stream in floats, which sizes each of the three
@@ -470,7 +480,9 @@ def build_phases(ops: Sequence[Op], offsets: Sequence[Optional[Dict]],
     phase's destination), 0..2 scratch. Each phase writes a buffer that is
     neither its source nor the live residual, except where an output
     element reads only its own position there (a residual add, the mix).
-    Each GEMM phase (pw, mix) gets its tile and K-split (`gemm_tiling`)."""
+    Each GEMM phase (pw, mix) gets its tile and K-split (`gemm_tiling`).
+    out_ewise: the last phase is an ewise or l2norm (which store a bf16
+    output), with an ewise copy added after any other kind."""
     cache_offs, _ = cache_layout(cache_shapes, B)
     phases: List[Dict[str, Any]] = []
     pending: List[Tuple[int, float]] = []
@@ -580,7 +592,8 @@ def build_phases(ops: Sequence[Op], offsets: Sequence[Optional[Dict]],
         t, c = t_out, c_out
     if skip is not None:
         raise ValueError("res_begin without res_end")
-    if pending or not phases:
+    if pending or not phases or (
+            out_ewise and phases[-1]["kind"] not in (EWISE, L2NORM)):
         materialize()
     phases[-1]["dst"] = -1
 
@@ -615,7 +628,7 @@ def _library(device: torch.device) -> Tuple[ctypes.CDLL, int]:
             p = ctypes.c_void_p
             lib.segment_run.argtypes = [
                 p, ctypes.c_int, p, p, p, p, p, p, p, p, p, ctypes.c_int,
-                p, p, ctypes.c_int, ctypes.c_int, p]
+                p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
             lib.segment_run.restype = ctypes.c_int
             lib.segment_grid.argtypes = [ctypes.POINTER(ctypes.c_int)]
             lib.segment_grid.restype = ctypes.c_int
@@ -636,7 +649,8 @@ class Plan:
     with the buffers its launches share: three scratch buffers for the
     activations (rows 16-byte aligned), the split-K workspace and the
     per-tile counters (zero, and left zero by every launch). Launches of one
-    plan run one after another on its stream."""
+    plan run one after another on its stream. `table` is the host copy."""
+    table: np.ndarray
     phases: torch.Tensor
     n_phases: int
     act_max: int
@@ -654,17 +668,53 @@ def make_plan(table: np.ndarray, act_max: int, B: int,
     ws, counters = split_workspace(table, B)
     stride = -(-max(B * act_max, 1) // 64) * 64
     return Plan(
-        torch.from_numpy(table.view(np.int32)).to(device), len(table),
+        table, torch.from_numpy(table.view(np.int32)).to(device), len(table),
         act_max, torch.empty((3, stride), dtype=torch.float32, device=device),
         torch.empty(max(ws, 1), dtype=torch.float32, device=device),
         torch.zeros(max(counters, 1), dtype=torch.int32, device=device))
 
 
-def _check(t: torch.Tensor, device: torch.device, name: str) -> None:
-    if t.device != device or t.dtype != torch.float32 or \
+# segment_run's storage-type flags (csrc/segment.cu DtypeBit)
+X_BF16, Y_BF16, AUX_BF16, CACHE_BF16 = 1, 2, 4, 8
+# the kinds that read a bf16 input or store a bf16 output in the kernel
+_READS_BF16_X = (PW, DENSE1CH, EWISE)
+_STORES_BF16_Y = (EWISE, L2NORM)
+
+
+def _check(t: torch.Tensor, device: torch.device, name: str,
+           dtypes=(torch.float32, torch.bfloat16)) -> None:
+    if t.device != device or t.dtype not in dtypes or \
             not t.is_contiguous():
-        raise ValueError(f"frame kernel: {name} must be contiguous float32 "
-                         f"on {device}, got {t.dtype} on {t.device}")
+        raise ValueError(f"frame kernel: {name} must be contiguous "
+                         f"{' or '.join(str(d) for d in dtypes)} on "
+                         f"{device}, got {t.dtype} on {t.device}")
+
+
+def dtype_flags(x: torch.Tensor, y: torch.Tensor,
+                aux: Sequence[torch.Tensor], cache: torch.Tensor) -> int:
+    """segment_run's `dtypes`: which of x, y, the aux inputs and the caches
+    hold bf16 (each f32 or bf16; all aux inputs of one dtype)."""
+    if len({a.dtype for a in aux}) > 1:
+        raise ValueError("frame kernel: the aux inputs differ in dtype")
+    bf = torch.bfloat16
+    return ((X_BF16 if x.dtype == bf else 0)
+            | (Y_BF16 if y.dtype == bf else 0)
+            | (AUX_BF16 if aux and aux[0].dtype == bf else 0)
+            | (CACHE_BF16 if cache.dtype == bf else 0))
+
+
+def check_phases(table: np.ndarray, flags: int) -> None:
+    """Refuse a table that would read a bf16 input or store a bf16 output
+    in a phase that takes only f32 there."""
+    if flags & X_BF16:
+        bad = [int(k) for k in table["kind"][table["src"] == -1]
+               if int(k) not in _READS_BF16_X]
+        if bad:
+            raise ValueError(f"frame kernel: a bf16 input is read by phase "
+                             f"kind {bad[0]}, which takes f32 only")
+    if flags & Y_BF16 and int(table["kind"][-1]) not in _STORES_BF16_Y:
+        raise ValueError("frame kernel: a bf16 output must be stored by an "
+                         "ewise or l2norm phase")
 
 
 def launch(kernel: str, counter: Dict[str, int], plan: Plan,
@@ -674,15 +724,21 @@ def launch(kernel: str, counter: Dict[str, int], plan: Plan,
     """Launch the segment kernel for one frame step on the current stream;
     raises if the launch is refused."""
     device = x.device
-    for name, t in (("x", x), ("y", y), ("weights", weights),
-                    ("cache_in", cache_in), ("cache_out", cache_out)):
+    for name, t in (("x", x), ("y", y), ("cache_in", cache_in),
+                    ("cache_out", cache_out)):
         _check(t, device, name)
+    _check(weights, device, "weights", (torch.float32,))
     for t in aux:
         _check(t, device, "aux")
     if len(aux) > MAX_AUX:
         raise ValueError(f"frame kernel takes at most {MAX_AUX} aux inputs")
+    if cache_in.dtype != cache_out.dtype:
+        raise ValueError("frame kernel: cache_in and cache_out differ in "
+                         "dtype")
     if cache_in.data_ptr() == cache_out.data_ptr() and cache_in.numel():
         raise ValueError("frame kernel: cache_in and cache_out must differ")
+    flags = dtype_flags(x, y, aux, cache_in)
+    check_phases(plan.table, flags)
     aux_ptrs = (ctypes.c_void_p * MAX_AUX)(
         *[t.data_ptr() for t in aux], *([None] * (MAX_AUX - len(aux))))
     bufs = plan.bufs
@@ -693,7 +749,7 @@ def launch(kernel: str, counter: Dict[str, int], plan: Plan,
             y.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
             bufs[2].data_ptr(), cache_in.data_ptr(), cache_out.data_ptr(),
             weights.data_ptr(), aux_ptrs, len(aux), plan.ws.data_ptr(),
-            plan.counters.data_ptr(), B, blocks,
+            plan.counters.data_ptr(), B, blocks, flags,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
@@ -788,19 +844,20 @@ class FrameKernel:
         return w
 
     def plan(self, w: Weights, B: int, t: int, c: int,
-             device: torch.device) -> Plan:
+             device: torch.device, out_ewise: bool = False) -> Plan:
         """The phase table and buffers for B streams of input (t, c) on the
         current stream of `device`, made once; tiled for the device's
-        grid."""
+        grid. out_ewise: see build_phases (a bf16 output)."""
         stream = torch.cuda.current_stream(device).cuda_stream
-        key = (B, t, c, device, stream)
+        key = (B, t, c, device, stream, out_ewise)
         with self._lock:
             plan = self._plans.get(key)
         if plan is None:
             with torch.cuda.device(device):
                 _, grid = _library(device)
             table, act_max = build_phases(self.ops, w.offsets,
-                                          self.cache_shapes, B, t, c, grid)
+                                          self.cache_shapes, B, t, c, grid,
+                                          out_ewise)
             plan = make_plan(table, act_max, B, device)
             with self._lock:
                 self._plans[key] = plan
@@ -819,16 +876,14 @@ class FrameKernel:
             return run_plain(self.ops, w.per_op, x, aux, caches)
         B = x.shape[0]
         t, c = (x.shape[1], 1) if x.ndim == 2 else (x.shape[1], x.shape[2])
-        plan = self.plan(w, B, t, c, x.device)
+        plan = self.plan(w, B, t, c, x.device,
+                         out_ewise=x.dtype == torch.bfloat16)
         t_out, c_out = op_shapes(self.ops, t, c)[-1][2:]
         cache_in = self.pack(caches, B)
         cache_out = torch.empty_like(cache_in)
-        y = torch.empty((B, t_out, c_out), dtype=torch.float32,
-                        device=x.device)
-        launch(self.kernel, self.launches, plan, w.flat,
-               x.float().contiguous(), y, [a.float().contiguous()
-                                           for a in aux],
-               cache_in, cache_out, B)
+        y = torch.empty((B, t_out, c_out), dtype=x.dtype, device=x.device)
+        launch(self.kernel, self.launches, plan, w.flat, x.contiguous(), y,
+               [a.contiguous() for a in aux], cache_in, cache_out, B)
         return y, self.unpack(cache_out, B)
 
 

@@ -90,24 +90,27 @@ def quantize_dequantize(x: torch.Tensor, codebooks: torch.Tensor,
 
 
 def token_parity_report(ours: torch.Tensor, ref: torch.Tensor,
-                        x: torch.Tensor, codebooks: torch.Tensor
-                        ) -> Dict[str, float]:
+                        x: torch.Tensor, codebooks: torch.Tensor,
+                        tie_rel: Optional[float] = None) -> Dict[str, float]:
     """Hold tokens `ours` against reference tokens `ref` (both [n, ...])
     of the latents `x` ([..., C]), allowing only provable f32 ties.
 
     Each first-divergence mismatch (a position whose earlier stages agree)
     is a tie when the float64 distances of the two chosen codewords, taken
     from the reference path's f32 residual, differ by less than the f32
-    accumulation bound of a C-term distance, 2*C*eps_f32 relative. Later
-    stages of a diverged position see other residuals and are not judged.
-    `ok` needs no non-tie and a mismatch rate of at most 1e-3."""
+    accumulation bound of a C-term distance, 2*C*eps_f32 relative (or
+    `tie_rel`, where the two sides' latents differ by more than f32
+    rounding). Later stages of a diverged position see other residuals and
+    are not judged. `ok` needs no non-tie and a mismatch rate of at most
+    1e-3."""
     n = ref.shape[0]
     C = codebooks.shape[-1]
     ref = ref.reshape(n, -1).long().cpu()
     ours = ours.reshape(n, -1).long().cpu()
     books = codebooks[:n].float().cpu()
     residual = x.reshape(-1, C).float().cpu()
-    bound = 2.0 * C * torch.finfo(torch.float32).eps
+    bound = (2.0 * C * torch.finfo(torch.float32).eps if tie_rel is None
+             else tie_rel)
     mism = ref != ours
     diverged = torch.zeros(ref.shape[1], dtype=torch.bool)
     ties = not_ties = 0

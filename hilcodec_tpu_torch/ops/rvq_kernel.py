@@ -33,6 +33,13 @@ at once (cudaOccupancyMaxActiveClusters): clusters of 16 CTAs while all
 of them fit one wave (the serving shape), else of 8 (the frame-kernel
 path's 128 rows). The kernel launches that plan as given, so the CPU tests
 check what the card runs.
+
+`quantize` goes through the custom operator `hilcodec::rvq_cascade`
+(`torch.library`), so that `torch.export` traces the cascade as one node:
+its CUDA implementation is the kernel, its CPU implementation the plain
+cascade, and its fake implementation gives the kernel's output shape and
+dtype. Importing the package registers it; a program exported from the
+port loads only after `import hilcodec_tpu_torch`.
 """
 
 from __future__ import annotations
@@ -257,11 +264,34 @@ def quantize_cuda(x: torch.Tensor, codebooks: torch.Tensor,
     return out.reshape(n, B, T)
 
 
+@torch.library.custom_op("hilcodec::rvq_cascade", mutates_args=())
+def rvq_cascade(x: torch.Tensor, codebooks: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """The cascade as an operator: the plain version on the CPU."""
+    return _rvq.quantize(x, codebooks, n).to(torch.int32)
+
+
+@rvq_cascade.register_kernel("cuda")
+def _rvq_cascade_cuda(x: torch.Tensor, codebooks: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    return quantize_cuda(x, codebooks, n)
+
+
+@rvq_cascade.register_fake
+def _rvq_cascade_fake(x: torch.Tensor, codebooks: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    if x.dtype != torch.float32 or codebooks.dtype != torch.float32:
+        raise TypeError(f"rvq_cascade takes float32, got {x.dtype} and "
+                        f"{codebooks.dtype}")
+    B, T, _ = x.shape
+    return x.new_empty((n, B, T), dtype=torch.int32)
+
+
 def quantize(x: torch.Tensor, codebooks: torch.Tensor,
              n: Optional[int] = None) -> torch.Tensor:
     """x: [B, T, C]; codebooks: [n_q, K, C] -> indices [n, B, T] (int32).
 
-    The kernel for CUDA tensors; the plain version for CPU tensors."""
-    if x.device.type == "cpu":
-        return _rvq.quantize(x, codebooks, n)
-    return quantize_cuda(x, codebooks, n)
+    The kernel for CUDA tensors; the plain version for CPU tensors (the
+    operator `hilcodec::rvq_cascade` either way)."""
+    return rvq_cascade(x, codebooks,
+                       codebooks.shape[0] if n is None else int(n))

@@ -23,7 +23,11 @@ boolean masks and downloads one packed int16 array; the int16 <->
 f32 conversion runs on the device, with round-half-even and clipping, so
 the outputs equal rounding the solo-stream float outputs on the host.
 The engine runs on CUDA unless `device` names another device; on CUDA it
-keeps convolutions and matmuls in IEEE f32 (TF32 off).
+keeps convolutions and matmuls in IEEE f32 (TF32 off). `dtype` (f32 by
+default, as the JAX engine's) is the caches' dtype; any other dtype also
+casts every leaf of the folded params (`cast_streaming_params`) and the
+uploaded PCM, so the frame step runs in it; the latents still reach the
+quantizer in f32.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, set_f32_parity_mode
+from ..models.codec import cast_streaming_params
 from ..models.hilcodec import params_to
 
 
@@ -76,12 +81,14 @@ class SlotEngine:
 
     mode: "roundtrip" (PCM in -> tokens + PCM out), "encode" (PCM in ->
     tokens out), "decode" (tokens in -> PCM out). `n` pins the quantizer
-    count (bandwidth); None = the model's full stack.
+    count (bandwidth); None = the model's full stack. `dtype`: the frame
+    step's dtype (caches, params and PCM; see the module note).
     """
 
     def __init__(self, model, params, vq_state, *, slots: int = 8,
                  n: Optional[int] = None, mode: str = "roundtrip",
-                 fold: bool = True, max_queue: int = 1024, device=None):
+                 fold: bool = True, dtype=torch.float32,
+                 max_queue: int = 1024, device=None):
         if mode not in ("roundtrip", "encode", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         self.device = resolve_device(device)
@@ -96,6 +103,9 @@ class SlotEngine:
         self.max_queue = max_queue
         if fold:
             params = model.fold_params(params)
+        if dtype != torch.float32:
+            params = cast_streaming_params(params, dtype, kernels_only=False)
+        self.dtype = dtype
         self._params = params_to(params, self.device)
         self._vq_state = {k: v.to(self.device) for k, v in vq_state.items()}
 
@@ -122,8 +132,8 @@ class SlotEngine:
     # ---------------------------------------------------------- device side
 
     def _alloc_caches(self) -> None:
-        ce, cd = self.model.init_cache(self.slots, device=self.device)
-        ce1, cd1 = self.model.init_cache(1, device=self.device)
+        ce, cd = self.model.init_cache(self.slots, self.dtype, self.device)
+        ce1, cd1 = self.model.init_cache(1, self.dtype, self.device)
         self._cache_enc = ce if self._need_enc else []
         self._cache_dec = cd if self._need_dec else []
         # per-slot init rows: a reset is a masked select against them
@@ -146,7 +156,8 @@ class SlotEngine:
                          self._axes_dec)
         if self.mode == "roundtrip":
             tok, wav, ce, cd = model.encode_decode_stream(
-                params, vq_state, _dec16(x), list(self._cache_enc),
+                params, vq_state, _dec16(x).to(self.dtype),
+                list(self._cache_enc),
                 list(self._cache_dec), n=n)
             _select_rows(self._cache_enc, ce, active_m, self._axes_enc)
             _select_rows(self._cache_dec, cd, active_m, self._axes_dec)
@@ -155,7 +166,8 @@ class SlotEngine:
             return torch.cat([_enc16(wav),
                               tok.permute(1, 2, 0).to(torch.int16)], dim=-1)
         if self.mode == "encode":
-            tok, ce = model.encode_stream(params, vq_state, _dec16(x),
+            tok, ce = model.encode_stream(params, vq_state,
+                                          _dec16(x).to(self.dtype),
                                           list(self._cache_enc), n=n)
             _select_rows(self._cache_enc, ce, active_m, self._axes_enc)
             return tok.to(torch.int16)                    # [n_q, S, 1]

@@ -38,6 +38,7 @@ from ..models.codec import CodecModel, residual_vq
 from ..models.discriminators import Discriminators
 from ..models.losses import HifiGANMelLoss, MelGradLoss, MelLoss
 from ..models.registry import build_codec_model
+from ..ops import conv as C
 from ..ops import mel as M
 from ..ops import stft as ST
 from ..ops.rvq import RVQDraws
@@ -141,11 +142,12 @@ def build_trainer(hps, device=None):
     and for Avocodo under `train.trainer: hilcodec` (its generator with
     the full-rate head only), Avocodo's own trainer otherwise; AudioDec
     is deploy-only and raises the JAX loop's ValueError.
-    `train.fbd_lowering` and `train.depthwise_lowering` may name either
-    JAX lowering; each is one conv lowering here (the JAX `shift` changes
-    its tracing only). `optimizer: SAM` raises: the step takes one
-    gradient a step, and SAM needs two, as in the JAX trainer, which
-    cannot drive it either."""
+    `train.depthwise_lowering` and `train.fbd_lowering` may name either
+    of the JAX loop's lowerings, which choose how XLA lowers the same
+    function; each is one convolution here
+    (`ops/conv.DEPTHWISE_LOWERINGS`). `optimizer: SAM` raises: the step
+    takes one gradient a step, and SAM needs two, as in the JAX trainer,
+    which cannot drive it either."""
     if hps.get("model", "hilcodec") == "audiodec":
         raise ValueError(
             "model: audiodec is deploy-only (the reference has no audiodec "
@@ -155,7 +157,7 @@ def build_trainer(hps, device=None):
     if lowering not in ("conv2d", "bands1d"):
         raise ValueError(f"unknown fbd lowering {lowering!r}")
     lowering = hp.get("depthwise_lowering", "conv")
-    if lowering not in ("conv", "shift"):
+    if lowering not in C.DEPTHWISE_LOWERINGS:
         raise ValueError(f"unknown depthwise lowering {lowering!r}")
     if hp.get("fam_mode", "separate") not in ("separate", "vmap", "joint"):
         raise ValueError(f"unknown fam_mode {hp.fam_mode!r}")

@@ -1,6 +1,7 @@
 """The port's bench entry (`python -m hilcodec_tpu_torch.bench`): argument
-parsing as in bench.py, the JSON contract on a tiny model on the CPU, and
-the refusals (no CUDA without --device, unported options)."""
+parsing as in bench.py, the JSON contract on a tiny model on the CPU, the
+--dtype and --depthwise options, and the refusals (no CUDA without
+--device, options with no meaning or no port)."""
 
 import json
 import os
@@ -51,17 +52,60 @@ def test_parse_args(argv, expect):
     (["--frames", "x"], "--frames requires an int"),
     (["--frames", "0"], "--frames must be positive"),
     (["--dispatch", "--frames", "2"], "takes no --frames"),
+    (["--dispatch", "--fused"], "takes no --fused"),
 ])
 def test_parse_args_rejects(argv, msg):
     with pytest.raises(SystemExit, match=msg):
         bench.parse_args(argv)
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--dtype", "--depthwise",
-                                  "--unroll", "--chunks"])
-def test_unported_options_point_at_roadmap(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        bench.parse_args(["8", flag, "2"])
+@pytest.mark.parametrize("argv,expect", [
+    (["8", "--mesh", "2"], "ROADMAP.md"),
+    (["8", "--unroll", "2"], "XLA scan of the JAX drivers"),
+    (["8", "--chunks", "2"], "XLA scan's streams"),
+    (["8", "--dtype", "bf16w"], bench.Args(streams=8, dtype="bf16w")),
+    (["8", "--dtype", "bf16", "--megakernel"],
+     bench.Args(streams=8, dtype="bf16", megakernel=True)),
+    (["8", "--depthwise", "shift", "--dtype", "f32"],
+     bench.Args(streams=8)),
+    (["8", "--dtype", "fp8"], "unknown --dtype"),
+    (["8", "--depthwise", "im2col"], "unknown --depthwise"),
+])
+def test_unported_options_point_at_roadmap(argv, expect):
+    """Slot sharding (--mesh) is not ported yet; --unroll and --chunks are
+    XLA scan knobs with no meaning for an eager frame loop; --dtype and
+    --depthwise take bench.py's values and refuse others (both depthwise
+    lowerings are the one convolution, so the parse is the same)."""
+    if isinstance(expect, str):
+        with pytest.raises(SystemExit, match=expect):
+            bench.parse_args(argv)
+    else:
+        assert bench.parse_args(argv) == expect
+
+
+def test_depthwise_shift_matches_conv_and_names_its_metric(monkeypatch):
+    """--depthwise shift names a lowering of XLA's: the port runs the same
+    convolution, so the run has the metric name, tokens and waveform of
+    --depthwise conv (the same seeded weights and audio, bitwise)."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(bench, "build_bench_model", _tiny_model)
+    res = {}
+    for mode in ("conv", "shift"):
+        argv = ["2", "--seconds", "0.002", "--device", "cpu",
+                "--depthwise", mode, "--dtype", "bf16"]
+        res[mode] = bench.run(argv)
+        args = bench.parse_args(argv)
+        model = _tiny_model(cpu)
+        params, vq_state = bench.bench_params(model, args.dtype)
+        wav = bench._noise((2, 1, 4 * model.hop_length), cpu,
+                           bench.act_dtype(args))
+        res[mode, "out"] = bench.encode_decode(
+            model, params, vq_state, wav,
+            *model.init_cache(2, bench.act_dtype(args)), args)[:2]
+    assert (res["shift"]["metric"] == res["conv"]["metric"]
+            == "torch_streaming_encdec_rtf_bf16")
+    for a, b in zip(res["conv", "out"], res["shift", "out"]):
+        assert torch.equal(a, b)
 
 
 def test_unported_model_exits_with_roadmap_pointer():

@@ -1,8 +1,9 @@
 """The port's deployment tools on a JAX checkpoint at a tiny width, on the
 CPU: `python -m hilcodec_tpu_torch.export` against the root `export.py`
 (deploy and cache npz files), the port's deploy npz in the JAX package,
-`serve --ckpt` against `serve --params`, and `clean_checkpoints` against
-the JAX package's."""
+`serve --ckpt` against `serve --params`, `clean_checkpoints` against
+the JAX package's, and the port's `--program` export against its eager
+streaming step."""
 
 import os
 import runpy
@@ -165,3 +166,61 @@ def test_clean_checkpoints_removes_what_jax_removes(tmp_path, capsys):
     assert sorted(out[:-1]) == sorted(
         f"would remove {tmp_path / 'dry' / p}" for p, _ in rel("jax", theirs))
     assert out[-1] == "freed 0.0 MB (dry run)"
+
+
+def test_export_program_equals_eager_step(exported, capsys):
+    """`--program` (the counterpart of the JAX `--stablehlo`): the encode
+    and decode dispatches at --streams 2 / --frames 2, saved as
+    torch.export programs, loaded back and stepped three times, give the
+    eager drivers' tokens, waveform and caches bitwise on the CPU; the RVQ
+    cascade is one `hilcodec::rvq_cascade` node of the encode program."""
+    tmp, cfg, path = exported
+    cfg_path = str(tmp / "config.yaml")
+    out = str(tmp / "prog" / "hil")
+    port_export.main(["-c", cfg_path, "--ckpt", path, "-o", out,
+                      "--device", "cpu", "--program", "--streams", "2",
+                      "--frames", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    assert any(f"{out}_enc.pt2" in ln and "streams=2, frames=2" in ln
+               for ln in lines)
+    enc = torch.export.load(f"{out}_enc.pt2").module()
+    dec = torch.export.load(f"{out}_dec.pt2").module()
+    ops = [str(nd.target) for nd in enc.graph.nodes
+           if "hilcodec" in str(nd.target)]
+    assert ops == ["hilcodec.rvq_cascade.default"]
+    model, params, vq_state = ckpt.load_codec(HParams(**cfg), path, "cpu",
+                                              random_books=False)
+    params = model.fold_params(params)
+    ce, cd = model.init_cache(2)
+    pe, pd = list(ce), list(cd)
+    wav = torch.from_numpy((np.random.default_rng(3).standard_normal(
+        (2, 1, 6 * model.hop_length)) * 0.3).astype(np.float32))
+    n2 = 2 * model.hop_length
+    with torch.no_grad():
+        for i in range(3):
+            x = wav[:, :, i * n2:(i + 1) * n2]
+            tok, ce = model.encode_stream(params, vq_state, x, ce,
+                                          frames_per_step=2)
+            got = enc(x, *pe)
+            tok_p, pe = got[0], list(got[1:])
+            assert torch.equal(tok_p, tok)
+            y, cd = model.decode_stream(params, vq_state, tok, cd,
+                                        frames_per_step=2)
+            got = dec(tok_p, *pd)
+            y_p, pd = got[0], list(got[1:])
+            assert torch.equal(y_p, y)
+            for a, b in zip(pe + pd, ce + cd):
+                assert torch.equal(a, b)
+
+
+def test_rvq_operator_fake_gives_the_kernel_shapes():
+    """The operator's fake implementation (what tracing sees): the kernel's
+    [n, B, T] int32 output, and its refusal of anything but f32."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        x = torch.empty(3, 5, 16)
+        books = torch.empty(4, 32, 16)
+        out = torch.ops.hilcodec.rvq_cascade(x, books, 2)
+        assert out.shape == (2, 3, 5) and out.dtype == torch.int32
+        with pytest.raises(TypeError, match="float32"):
+            torch.ops.hilcodec.rvq_cascade(x.bfloat16(), books, 2)

@@ -151,8 +151,17 @@ def test_spectral_norm_init_and_fold():
     assert set(folded["conv"]) == {"w", "b"}
     assert torch.equal(folded["conv"]["w"],
                        TR.spectral_norm_compute(p["v"], p["u"]))
-    with pytest.raises(NotImplementedError):
-        TR.init_reparam(w, "weight_standardization")
+    # weight standardization (ported since): JAX's {v, g} init, its
+    # weight in the fold
+    ws = TR.init_reparam(w, "weight_standardization", bias=b)
+    ref = JR.init_reparam(jnp.asarray(w.numpy()), "weight_standardization",
+                          bias=jnp.asarray(b.numpy()))
+    assert set(ws) == set(ref) == {"v", "g", "b"}
+    for k in ref:
+        np.testing.assert_array_equal(ws[k].numpy(), np.asarray(ref[k]))
+    folded = TR.fold(ws, TR.WEIGHT_STANDARDIZATION)
+    close(folded["w"].numpy(), JR.fold(ref, JR.WEIGHT_STANDARDIZATION)["w"],
+          SN_TOL, "standardized fold")
 
 
 # -------------------------------------------------------------------- MPD

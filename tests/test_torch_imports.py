@@ -23,7 +23,9 @@ def _run(code, cwd=ROOT, **kw):
 
 def test_port_and_chip_smoke_import_no_jax():
     """Every module of hilcodec_tpu_torch, and chip_smoke.py, imported in a
-    fresh interpreter: neither `jax` nor `hilcodec_tpu` gets loaded."""
+    fresh interpreter: neither `jax` nor `hilcodec_tpu` gets loaded, and
+    the package import registers the RVQ operator that exported programs
+    call."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import hilcodec_tpu_torch as p\n"
@@ -36,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "m.startswith('hilcodec_tpu.'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 59, names\n"
+        "assert len(names) >= 60, names\n"
         "assert {'hilcodec_tpu_torch.models.avocodo', "
         "'hilcodec_tpu_torch.train.step_avocodo', "
         "'hilcodec_tpu_torch.ops.shape_gain', "
@@ -48,7 +50,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "'hilcodec_tpu_torch.train.lm', "
         "'hilcodec_tpu_torch.train_lm', "
         "'hilcodec_tpu_torch.entropy_code', "
-        "'hilcodec_tpu_torch.utils.debug'} <= set(names)\n")
+        "'hilcodec_tpu_torch.utils.debug', "
+        "'hilcodec_tpu_torch.ops.mdct'} <= set(names)\n"
+        "import torch\n"
+        "assert torch.ops.hilcodec.rvq_cascade.default is not None\n")
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr[-2000:]
 

@@ -7,7 +7,10 @@ which is held here against JAX's `DecoderMegakernel` / `EncoderMegakernel`
 in interpret mode at the JAX tests' tolerances (rtol 1e-5 / atol 1e-6 for
 the decoder, 1e-4 / 1e-5 for the encoder). The kernel itself runs only on the
 card (chip_smoke.py); what it is driven by, the phase table, is checked
-here by an emulator of its phase semantics against the plain version.
+here by an emulator of its phase semantics against the plain version,
+also with bf16 weights (`--dtype bf16w`, against JAX's interpret mode) and
+with bf16 inputs and caches that round when stored (`--dtype bf16`,
+against the plain version).
 """
 
 import shutil
@@ -20,12 +23,15 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+from hilcodec_tpu.models.codec import \
+    cast_streaming_params as jax_cast_streaming_params
 from hilcodec_tpu.models.hilcodec import HILCodec as JaxHILCodec
 from hilcodec_tpu.ops.pallas_decoder import DecoderMegakernel as JaxDecMK
 from hilcodec_tpu.ops.pallas_decoder import _decoder_ops
 from hilcodec_tpu.ops.pallas_encoder import EncoderMegakernel as JaxEncMK
 from hilcodec_tpu.ops.pallas_encoder import _encoder_ops
 
+from hilcodec_tpu_torch.models.codec import cast_streaming_params
 from hilcodec_tpu_torch.models.hilcodec import HILCodec
 from hilcodec_tpu_torch.ops import decoder_kernel as DK
 from hilcodec_tpu_torch.ops import encoder_kernel as EK
@@ -241,7 +247,9 @@ def _pre(p, v):
 
 def _emulate(table, B, x, aux, cache_in, weights):
     """The phase semantics of csrc/segment.cu, phase by phase, with the
-    buffer rules the kernel relies on asserted."""
+    buffer rules the kernel relies on asserted. x, the aux inputs and the
+    caches may be bf16: widened where loaded, a cache rounded (to nearest
+    even) where stored and the output where it leaves, all else f32."""
     bufs, y = {}, None
     cache_out = torch.full_like(cache_in, float("nan"))
     for p in table:
@@ -254,7 +262,7 @@ def _emulate(table, B, x, aux, cache_in, weights):
             # reads neighbours of its source: never in place
             assert src < 0 or src != dst, p
             assert res < 0 or res != src, p
-        data = x.reshape(-1) if src < 0 else bufs[src]
+        data = x.reshape(-1).float() if src < 0 else bufs[src]
 
         def wt(name, rows, cols):
             off = int(p[name])
@@ -264,14 +272,16 @@ def _emulate(table, B, x, aux, cache_in, weights):
                 if int(p["bias"]) >= 0 else 0.0)
         if kind in (DK.DW, DK.CONVT, DK.POST, DK.DWS):
             clen, off = int(p["cache_len"]), int(p["cache"])
-            cache = cache_in[off:off + B * clen * ci].view(B, clen, ci)
+            cache = cache_in[off:off + B * clen * ci].view(
+                B, clen, ci).float()
             xc = torch.cat([cache, _pre(p, data[:B * ti * ci]
                                         .view(B, ti, ci))], 1)
             cache_out[off:off + B * clen * ci] = xc[:, ti:].reshape(-1)
         if kind == DK.EWISE:
             out = _pre(p, data[:B * ti * ci])
         elif kind in (DK.PW, DK.MIX):
-            a = (aux[int(p["aux"])].reshape(-1, ci) if kind == DK.MIX
+            a = (aux[int(p["aux"])].float().reshape(-1, ci)
+                 if kind == DK.MIX
                  else _pre(p, data[:B * ti * ci].view(-1, ci)))
             w = wt("w", ci, co)
             splits, ks = int(p["splits"]), int(p["kslice"])
@@ -314,7 +324,7 @@ def _emulate(table, B, x, aux, cache_in, weights):
         else:
             bufs[dst] = out
     assert not torch.isnan(cache_out).any(), "a cache region was not written"
-    return y, cache_out
+    return y.to(x.dtype), cache_out
 
 
 GRID = 264   # an H100's persistent grid: 132 SMs x 2 blocks
@@ -428,6 +438,123 @@ def test_phase_table_at_two_frames_matches_jax_interpret(setup, part):
             tol = dict(rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(n(y), n(yj), **tol)
         _close_tm(ct, cj, **tol)
+
+
+def _cast(tree, kernels_only):
+    return cast_streaming_params(tree, torch.bfloat16, kernels_only)
+
+
+@pytest.mark.parametrize("part", ["decoder", "encoder"])
+def test_phase_table_at_bf16w_matches_jax_interpret(setup, part):
+    """--dtype bf16w (bf16 weights, f32 caches and activations): the
+    weights are widened once when packed, and the phase table, emulated,
+    gives JAX's Pallas megakernel in interpret mode on the same bf16
+    weights, frame after frame, at the f32 tolerances above."""
+    jm, tm, fj, ft = setup
+    batch = 3
+    rng = np.random.default_rng(8)
+    pj = jax_cast_streaming_params(fj[part], jnp.bfloat16, True)
+    pt = _cast(ft[part], True)
+    if part == "decoder":
+        jmk = JaxDecMK(jm.codec.decoder, block_streams=batch, interpret=True)
+        mk = DK.DecoderMegakernel(tm.codec.decoder)
+        cj, ct = jmk.init_cache(batch), mk.init_cache(batch)
+        tol = dict(rtol=1e-5, atol=1e-6)
+    else:
+        jmk = JaxEncMK(jm.codec.encoder, block_streams=batch, interpret=True)
+        mk = EK.EncoderMegakernel(tm.codec.encoder)
+        cj = jmk.cache_to_time_major(jm.codec.encoder.init_cache(batch))
+        ct = mk.cache_to_time_major(tm.codec.encoder.init_cache(batch))
+        tol = dict(rtol=1e-4, atol=1e-5)
+    w = mk.weights(pt)
+    assert w.flat.dtype == torch.float32
+    jstep = jax.jit(jmk.step)
+    for _ in range(2):
+        if part == "decoder":
+            q = (rng.standard_normal((batch, 16, 1)) * 0.5).astype(np.float32)
+            yj, cj = jstep(pj, cj, jnp.asarray(q))
+            x, aux, cin = t(q).transpose(1, 2).contiguous(), [], ct
+        else:
+            q = (rng.standard_normal((batch, 1, 8)) * 0.3).astype(np.float32)
+            yj, cj = jstep(pj, cj, jnp.asarray(q))
+            ring, x, aux = mk.frame_inputs(ct[0], t(q))
+            cin = ct[1:]
+        table, _ = DK.build_phases(mk.ops, w.offsets, mk.cache_shapes, batch,
+                                   x.shape[1], 1 if x.ndim == 2 else 16,
+                                   GRID)
+        y, c_flat = _emulate(table, batch, x, aux, mk.pack(cin, batch),
+                             w.flat)
+        ct = mk.unpack(c_flat, batch)
+        if part == "encoder":
+            ct = [ring] + ct
+            y = y.view(batch, 1, 16).transpose(1, 2)
+        else:
+            y = y.view(batch, 1, 8)
+        np.testing.assert_allclose(n(y), n(yj), **tol)
+        _close_tm(ct, cj, **tol)
+
+
+@pytest.mark.parametrize("part", ["decoder", "encoder"])
+def test_phase_table_in_bf16_rounds_where_the_plain_version_does(setup,
+                                                                 part):
+    """--dtype bf16 (bf16 weights, input, aux inputs and caches): the
+    table the kernel runs for a bf16 output (out_ewise), emulated with its
+    loads widened and its caches and output rounded to nearest even when
+    stored, against the kernel's plain version at bf16 (JAX's Pallas
+    kernel has no bf16 counterpart to hold it to: in interpret mode its
+    f32 store into a bf16 cache ref raises). Values that the two round
+    from nearly equal f32 sums may differ by one bf16 spacing."""
+    _, tm, _, ft = setup
+    batch = 3
+    bf = torch.bfloat16
+    rng = np.random.default_rng(9)
+    layer = getattr(tm.codec, part)
+    mk = (DK.DecoderMegakernel(layer) if part == "decoder"
+          else EK.EncoderMegakernel(layer))
+    w = mk.weights(_cast(ft[part], False))
+    caches = mk.init_cache(batch, bf)
+    for _ in range(3):
+        if part == "decoder":
+            x = torch.from_numpy(rng.standard_normal((batch, 1, 16))
+                                 .astype(np.float32)).to(bf)
+            aux, cin = [], caches
+        else:
+            q = torch.from_numpy((rng.standard_normal((batch, 1, 8)) * 0.3)
+                                 .astype(np.float32)).to(bf)
+            ring, x, aux = mk.frame_inputs(caches[0], q)
+            assert all(a.dtype == bf for a in aux)
+            cin = caches[1:]
+        table, _ = DK.build_phases(mk.ops, w.offsets, mk.cache_shapes, batch,
+                                   x.shape[1], 1 if x.ndim == 2 else 16,
+                                   GRID, out_ewise=True)
+        flags = DK.dtype_flags(x, x, aux, cin[0])
+        assert flags == (DK.X_BF16 | DK.Y_BF16 | DK.CACHE_BF16
+                         | (DK.AUX_BF16 if aux else 0))
+        DK.check_phases(table, flags)
+        y_ref, c_ref = DK.run_plain(mk.ops, w.per_op, x, aux, cin)
+        y, c_flat = _emulate(table, batch, x, aux, mk.pack(cin, batch),
+                             w.flat)
+        assert y.dtype == y_ref.dtype == bf and c_flat.dtype == bf
+        for got, ref in ((y, y_ref.reshape(-1)),
+                         (c_flat, mk.pack(c_ref, batch))):
+            ref = ref.float()
+            spacing = 2.0 ** (torch.floor(torch.log2(ref.abs().max())) - 7)
+            assert float((got.float() - ref).abs().max()) <= spacing
+        c_ref = [c.contiguous() for c in c_ref]
+        caches = c_ref if part == "decoder" else [ring] + c_ref
+
+
+def test_bf16_phase_checks_refuse_what_the_kernel_cannot_store():
+    """A bf16 input read by a phase that takes f32, or a bf16 output stored
+    by a GEMM, is refused before any launch."""
+    table = np.zeros(2, DK.PHASE_DTYPE)
+    table["kind"] = (DK.DW, DK.PW)
+    table["src"] = (-1, 0)
+    with pytest.raises(ValueError, match="bf16 input"):
+        DK.check_phases(table, DK.X_BF16)
+    with pytest.raises(ValueError, match="bf16 output"):
+        DK.check_phases(table, DK.Y_BF16)
+    DK.check_phases(table, DK.CACHE_BF16 | DK.AUX_BF16)
 
 
 def test_time_major_caches_are_one_packed_buffer(setup):
