@@ -48,7 +48,7 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
   7. training: (a) the flagship GAN trainer (build_trainer on
      configs/hilcodec_speech.yaml, seeded weights, codebooks k-means-
      initialized on a seeded batch) at batch 24 x 24000 samples of seeded
-     speech-like audio: 3 warm-up and 5 timed steps, step ms p50 / p90
+     speech-like audio: 1 warm-up and 5 timed steps, step ms p50 / p90
      (CUDA events), audio seconds trained per wall second, peak memory,
      a torch.profiler window (device busy, top kernels), the step's FLOPs
      and f32 bound; every loss finite, the params moved, the RVQ kernel
@@ -86,7 +86,7 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      the same tokens); ticks at 16 and 128
      slots with the profiler; the bench with --model encodec (8
      quantizers, K1's shape) at 16 and 128 streams; the trainer at batch
-     24 x 24000 (3 warm-up and 5 timed steps, as 7(a)); the RVQ kernel's
+     24 x 24000 (1 warm-up and 5 timed steps, as 7(a)); the RVQ kernel's
      training tokens at M = 1800, n = 32; one step on the card against
      the CPU step at batch 2 (as 7(b));
  10. Avocodo (configs/avocodo_music.yaml at full width: encoder 64 /
@@ -99,10 +99,11 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      kernel's training tokens at M = 900 for n = 2, 4, 8, 12; one step on
      the card against the CPU step at batch 2 (as 7(b));
      configs/avocodo_synth_hiltrainer.yaml for 3 steps at batch 24; the
-     train CLI for one epoch of configs/avocodo_synth.yaml, then export,
-     infer -f 1 and eval in model mode on its checkpoint;
+     train CLI for one epoch of configs/avocodo_synth.yaml (beside the
+     parity step and the ablation), then export, infer -f 1 and eval in
+     model mode on its checkpoint;
  11. the quantizer routing on configs/hilcodec_shapegain_synth.yaml
-     (32 / 48 channels): shape-gain training at batch 24 (3 warm-up, 5
+     (32 / 48 channels): shape-gain training at batch 24 (1 warm-up, 5
      timed steps; the shape / gain state moved, codes replaced, no RVQ
      launch); `vq: ''` for 2 steps; one shape-gain step on the card
      against the CPU step at batch 2, with its argmax flips;
@@ -159,7 +160,28 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      STFT and channelwise skips at full width (temporary yaml): 16 slots x
      75 ticks, tokens exact or ties against the CPU, two finite train
      steps, and the frame kernels on the weight-standardized flagship;
-     EnCodec with pad_mode edge and wrap, offline, against the CPU.
+     EnCodec with pad_mode edge and wrap, offline, against the CPU;
+ 16. data parallelism, slot sharding and the host I/O: (c) a seeded corpus
+     of 24 WAVs, dumped for DatasetPreprocessed with extract_pitch; the
+     native read_batch of 24 x 24000-sample segments against the stdlib
+     reader (equal arrays, ms p50 over 20 batches), the loader's batches
+     a second with DirectoriesDataset and DatasetPreprocessed, pitch ms
+     per audio second, files read by each reader (host numbers); (a) the
+     flagship trainer at batch 24 in an NCCL group of one rank: one step
+     from phase 7's initial state, batch and draws, bitwise equal to the
+     step without a group under deterministic cuDNN, then 5 timed steps
+     of each in turns, beside phase 7's p50 (K1 once a step); `python -m
+     torch.distributed.run --nproc_per_node 1 -m hilcodec_tpu_torch.train`
+     on the DatasetPreprocessed corpus for an epoch, then its checkpoint
+     resumed for a second by a TrainLoop in this process's group; (b)
+     SlotEngine(devices=['cuda:0', 'cuda:0']), two shards on the one card,
+     against devices=None at 16 and 128 slots x 75 ticks, for the flagship
+     and for EnCodec (its LSTM state split on axis 1): tokens equal or f32
+     ties, PCM within PCM_TOL_LSB; the flagship's tick p50 / p99 in turns;
+     `serve --mesh` with 8 TCP clients against an engine on the same cards
+     in this process; the bench at 128 streams, plain and --megakernel,
+     unsharded and --mesh over the same two shards (the launches of every
+     kernel).
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -840,7 +862,7 @@ def phase_serve(model, params, vq_state, sr, tag="serve"):
 
     hop, n_q = model.hop_length, model.vq.num_quantizers
     engine = SlotEngine(model, params, vq_state, slots=SERVE_SLOTS,
-                        mode="roundtrip", fold=False, device=model.device)
+                        mode="roundtrip", fold=False, devices=[model.device])
     log(f"[{tag}] {SERVE_SLOTS}-slot roundtrip engine warmup "
         f"{engine.warmup():.2f} s")
     audio = [client_audio(i, hop) for i in range(N_CLIENTS)]
@@ -930,7 +952,7 @@ def phase_timings(model, params, vq_state, card, tag="timing"):
     for slots in (16, 128):
         engine = SlotEngine(model, params, vq_state, slots=slots,
                             mode="roundtrip", fold=False,
-                            device=model.device)
+                            devices=[model.device])
         engine.warmup()
         for _ in range(slots):
             engine.attach()
@@ -1068,7 +1090,10 @@ def phase_bench():
 
 TRAIN_BATCH = 24              # the flagship config's batch
 TRAIN_SEGMENT = 24000         # its segment (1 s at 24 kHz)
-TRAIN_WARMUP = 3
+# warm-up steps of each training mode: 1 (3 before phase 16 was added), a
+# cut of depth for the run's time; the timed steps' p50 absorbs a slow
+# first one
+TRAIN_WARMUP = 1
 # timed steps of each training mode: 5 (10 before the serving options'
 # phase 15), a cut of depth for the run's time
 TRAIN_TIMED = 5
@@ -1144,7 +1169,7 @@ def train_setup(device, batch, seed, config=CONFIG):
 def train_bound(trainer, state, wav_t, draws):
     """The step's FLOPs as torch.utils.flop_counter counts them from the
     conv and matmul shapes (forward and backward; FFTs and elementwise
-    work not counted), and its f32 bound at PEAK_F32_FLOPS in ms."""
+    work not counted), in all and by op."""
     from torch.utils.flop_counter import FlopCounterMode
     with FlopCounterMode(display=False) as fc:
         trainer.train_step(state, wav_t, draws)
@@ -1153,7 +1178,7 @@ def train_bound(trainer, state, wav_t, draws):
     for op, n in fc.get_flop_counts().get("Global", {}).items():
         name = str(op).split(".")[1] if "." in str(op) else str(op)
         by_op[name] = by_op.get(name, 0) + n
-    return flops, flops / PEAK_F32_FLOPS * 1e3, by_op
+    return flops, by_op
 
 
 def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
@@ -1283,17 +1308,16 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
     wav_t = batches[0]
     draws = trainer.sample_draws(step_generator(SEED, 0), wav_t.shape)
     if flops_of is None:
-        flops, bound_ms, by_op = train_bound(trainer, state, wav_t, draws)
+        flops, by_op = train_bound(trainer, state, wav_t, draws)
         counted = f"dropout depth {draws.n}"
     else:
         flops, by_op = flops_of[1]["flops"], flops_of[1]["by_op"]
-        bound_ms = flops / PEAK_F32_FLOPS * 1e3
         counted = f"the same shapes as [{flops_of[0]}], its count"
     # the bound at the peak of the step's convolution dtype
     bf16 = getattr(trainer, "compute_dtype", torch.float32) == torch.bfloat16
     peak_flops, dtype = ((PEAK_BF16_FLOPS, "bf16") if bf16
                          else (PEAK_F32_FLOPS, "f32"))
-    bound_ms *= PEAK_F32_FLOPS / peak_flops
+    bound_ms = flops / peak_flops * 1e3
     log(f"[{tag}] step FLOPs (conv + matmul shapes, forward and backward, "
         f"{counted}): {flops / 1e12:.2f} TFLOP ("
         + ", ".join(f"{k} {v / 1e12:.2f}" for k, v in sorted(
@@ -1609,15 +1633,10 @@ def phase_train_tokens(trainer, state, depths=(2, 4, 8),
                                      f"at n={n}: {rep}")
 
 
-def phase_train_cli(tmp, config=os.path.join(ROOT, "configs",
-                                             "hilcodec_speech_synth.yaml"),
-                    name="smoke", runs=2):
-    """(d) `python -m hilcodec_tpu_torch.train` of `config` on a seeded
-    corpus written with the port's write_wav: one epoch writes
-    00001.ckpt.npz and, with runs=2, a second run resumes from it with the
-    summaries of `summaries_config` on (-f) and writes 00002.ckpt.npz;
-    under {tmp}/logs/{name}. Returns the last run's standard output and
-    seconds."""
+def train_cli_setup(tmp, config):
+    """A seeded corpus written with the port's write_wav under {tmp}, and
+    `config` training on it for one epoch of CLI_STEPS steps at CLI_BATCH,
+    written to {tmp}/config.yaml: (its path, the config)."""
     import yaml
     from hilcodec_tpu_torch.utils.wavio import write_wav
 
@@ -1645,29 +1664,60 @@ def phase_train_cli(tmp, config=os.path.join(ROOT, "configs",
     path = os.path.join(tmp, "config.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
-    base = os.path.join(tmp, "logs")
+    return path, cfg
+
+
+def train_cli_start(tmp, name, extra):
+    """`python -m hilcodec_tpu_torch.train -n name -b {tmp}/logs [extra]`,
+    started: (process, start time)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hilcodec_tpu_torch.train", "-n", name,
+         "-b", os.path.join(tmp, "logs")] + extra, cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def train_cli_await(tmp, name, run, extra, started):
+    """Wait for a train CLI run started by train_cli_start: it must exit 0
+    and write {tmp}/logs/{name}/{run:05d}.ckpt.npz (and, for run 2, say
+    that it resumed). Returns its standard output and seconds."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+        raise
+    dt = time.perf_counter() - t0
+    for ln in (stdout + stderr).strip().splitlines()[-6:]:
+        log(f"[train-cli]   {ln[:160]}")
+    ckpt = os.path.join(tmp, "logs", name, f"{run:05d}.ckpt.npz")
+    if proc.returncode != 0 or not os.path.exists(ckpt):
+        raise AssertionError(f"train CLI run {run} failed "
+                             f"(rc {proc.returncode}) or wrote no {ckpt}"
+                             f"\n{stderr[-3000:]}")
+    if run == 2 and "resumed from" not in stdout:
+        raise AssertionError("the second CLI run did not resume")
+    log(f"[train-cli] run {run} ({' '.join(extra)}): rc 0 in "
+        f"{dt:.1f} s, wrote {os.path.relpath(ckpt, tmp)}")
+    return stdout, dt
+
+
+def phase_train_cli(tmp, config=os.path.join(ROOT, "configs",
+                                             "hilcodec_speech_synth.yaml"),
+                    name="smoke", runs=2):
+    """(d) `python -m hilcodec_tpu_torch.train` of `config` on the corpus
+    of train_cli_setup: one epoch writes 00001.ckpt.npz and, with runs=2,
+    a second run resumes from it with the summaries of `summaries_config`
+    on (-f) and writes 00002.ckpt.npz; under {tmp}/logs/{name}. Returns
+    the last run's standard output and seconds."""
+    path, cfg = train_cli_setup(tmp, config)
     resume = ["-c", summaries_config(tmp, cfg), "-f", "-p",
               "train.max_epochs=2"]
     for i, extra in enumerate((["-c", path], resume)[:runs]):
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "hilcodec_tpu_torch.train", "-n", name,
-             "-b", base] + extra, cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=600)
-        dt = time.perf_counter() - t0
-        for ln in (out.stdout + out.stderr).strip().splitlines()[-6:]:
-            log(f"[train-cli]   {ln[:160]}")
-        ckpt = os.path.join(base, name, f"{i + 1:05d}.ckpt.npz")
-        if out.returncode != 0 or not os.path.exists(ckpt):
-            raise AssertionError(f"train CLI run {i + 1} failed "
-                                 f"(rc {out.returncode}) or wrote no {ckpt}"
-                                 f"\n{out.stderr[-3000:]}")
-        if i == 1 and "resumed from" not in out.stdout:
-            raise AssertionError("the second CLI run did not resume")
-        log(f"[train-cli] run {i + 1} ({' '.join(extra)}): rc 0 in "
-            f"{dt:.1f} s, wrote {os.path.relpath(ckpt, tmp)}")
-    return out.stdout, dt
+        out, dt = train_cli_await(tmp, name, i + 1, extra,
+                                  train_cli_start(tmp, name, extra))
+    return out, dt
 
 
 def summaries_config(tmp, cfg):
@@ -1742,16 +1792,17 @@ def in_process(main, argv, tag="tools"):
     return buf.getvalue(), time.perf_counter() - t0
 
 
-def spawn_serve(cfg, ckpt=None):
-    """Start `python -m hilcodec_tpu_torch.serve [--ckpt]` on a free port,
-    4 slots: (process, a queue of its output lines, the start time)."""
+def spawn_serve(cfg, ckpt=None, slots=4, mesh=False):
+    """Start `python -m hilcodec_tpu_torch.serve [--ckpt] [--mesh]` on a
+    free port: (process, a queue of its output lines, the start time)."""
     import queue
     import threading
     env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "hilcodec_tpu_torch.serve", "-c", cfg,
-         "--slots", "4", "--port", "0"] + (["--ckpt", ckpt] if ckpt else []),
+         "--slots", str(slots), "--port", "0"]
+        + (["--ckpt", ckpt] if ckpt else []) + (["--mesh"] if mesh else []),
         cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = queue.Queue()
@@ -1851,7 +1902,7 @@ def phase_tools(tmp, card, resumed):
                 proc.kill()
                 proc.wait()
     engine = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
-                        fold=False, device=model.device)
+                        fold=False, devices=[model.device])
     engine.warmup()
 
     async def served():
@@ -2181,7 +2232,7 @@ def phase_serve_cli(config, card, tag, started):
             proc.kill()
             proc.wait()
     engine = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
-                        fold=False, device=model.device)
+                        fold=False, devices=[model.device])
     engine.warmup()
 
     async def served():
@@ -2212,7 +2263,7 @@ def phase_encodec(card):
     solo stream with the plain quantizer); the serve CLI; ticks at 16 and
     128 slots with
     the profiler; the bench with --model encodec at 16 and 128 streams;
-    the trainer at batch 24 x 24000 (3 warm-up, 5 timed steps); the RVQ
+    the trainer at batch 24 x 24000 (1 warm-up, 5 timed steps); the RVQ
     kernel's training tokens at M = 1800, n = 32; one step on the card
     against the CPU step at batch 2. Returns the RVQ kernel's launches on
     the serving, bench and training paths and the training numbers."""
@@ -2274,12 +2325,13 @@ def phase_avocodo(card):
     x 75 frames, each against its solo stream with the plain quantizer,
     one RVQ launch a tick); the serve CLI; ticks at 16 and 128 slots with
     the profiler; the bench with --model avocodo at 16 and 128 streams;
-    the Avocodo trainer at batch 12 x 24000 (3 warm-up, 5 timed steps);
+    the Avocodo trainer at batch 12 x 24000 (1 warm-up, 5 timed steps);
     the RVQ kernel's training tokens at M = 900 for n = 2, 4, 8, 12; one
     step on the card against the CPU step at batch 2; 3 steps of
-    configs/avocodo_synth_hiltrainer.yaml at batch 24; the tools on a
-    one-epoch checkpoint. Returns the RVQ kernel's launches on each path
-    and the numbers of the serving and training paths."""
+    configs/avocodo_synth_hiltrainer.yaml at batch 24, beside the train CLI
+    of configs/avocodo_synth.yaml for one epoch; the tools on its
+    checkpoint. Returns the RVQ kernel's launches on each path and the
+    numbers of the serving and training paths."""
     import tempfile
     import torch
     from hilcodec_tpu_torch import bench
@@ -2322,11 +2374,20 @@ def phase_avocodo(card):
     del trainer, state
     torch.cuda.empty_cache()
     done("training")
-    phase_train_parity(AVOCODO_CONFIG, tag="avocodo-train-parity")
-    hil_launches = phase_hiltrainer(card)
-    torch.cuda.empty_cache()
-    done("parity and the hiltrainer ablation")
     with tempfile.TemporaryDirectory() as tmp:
+        # the train CLI's epoch runs beside the untimed parity step and
+        # the ablation; the tools take its checkpoint
+        cli = ["-c", train_cli_setup(tmp, os.path.join(
+            ROOT, "configs", "avocodo_synth.yaml"))[0]]
+        started = train_cli_start(tmp, "avo", cli)
+        try:
+            phase_train_parity(AVOCODO_CONFIG, tag="avocodo-train-parity")
+            hil_launches = phase_hiltrainer(card)
+            train_cli_await(tmp, "avo", 1, cli, started)
+        finally:
+            _stop(started[0])
+        torch.cuda.empty_cache()
+        done("parity, the hiltrainer ablation and the train CLI")
         tools_launches = phase_avocodo_tools(tmp, card)
     return dict(serve_launches=serve_launches, bench_launches=bench_launches,
                 ticks=ticks, train=train, hil_launches=hil_launches,
@@ -2358,7 +2419,8 @@ def phase_hiltrainer(card):
     log(f"[avocodo-hiltrainer] {type(trainer).__name__} of "
         f"configs/avocodo_synth_hiltrainer.yaml, {HILTRAINER_STEPS} steps "
         f"at batch {TRAIN_BATCH}: wall s {[round(w, 3) for w in walls]} "
-        f"(the first builds cuDNN's plans); rvq_cascade launches {launches} "
+        f"(the first builds cuDNN's plans; beside the train CLI); "
+        f"rvq_cascade launches {launches} "
         f"({card})")
     for k in sorted(k for k in host[0] if k.startswith("loss/")):
         log(f"[avocodo-hiltrainer]   {k}: "
@@ -2372,18 +2434,17 @@ def phase_hiltrainer(card):
 
 
 def phase_avocodo_tools(tmp, card):
-    """The train CLI of configs/avocodo_synth.yaml for one epoch, then on
-    its 00001.ckpt.npz: export (a subprocess), infer -f 1 with --latency
-    and eval in model mode (offline, through the trainer's facade) in this
-    process; the RVQ kernel's launches over infer and eval."""
+    """On the 00001.ckpt.npz that the train CLI of configs/
+    avocodo_synth.yaml wrote under {tmp}: export, infer -f 1 with
+    --latency and eval in model mode (offline, through the trainer's
+    facade) in this process; the RVQ kernel's launches over infer and
+    eval."""
     from hilcodec_tpu_torch import eval as tools_eval
     from hilcodec_tpu_torch import export as tools_export
     from hilcodec_tpu_torch import infer as tools_infer
     from hilcodec_tpu_torch.ops import rvq_kernel
     from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
 
-    phase_train_cli(tmp, os.path.join(ROOT, "configs", "avocodo_synth.yaml"),
-                    name="avo", runs=1)
     cfg = os.path.join(tmp, "config.yaml")
     ckpt = os.path.join(tmp, "logs", "avo", "00001.ckpt.npz")
     deploy = os.path.join(tmp, "deploy", "avo")
@@ -2452,7 +2513,7 @@ NOVQ_STEPS = 2
 
 def phase_routing(card):
     """The `vq:` routing on configs/hilcodec_shapegain_synth.yaml (32 / 48
-    channels): shape-gain training at batch 24 (3 warm-up, 5 timed steps;
+    channels): shape-gain training at batch 24 (1 warm-up, 5 timed steps;
     losses finite, the shape / gain EMA state moved, replaces counted, no
     RVQ launch); the same config with `vq: ''` for NOVQ_STEPS steps (zero
     VQ loss, no replaces); one shape-gain step on the card against the
@@ -3303,7 +3364,7 @@ def tick_ms(model, params, vq_state, slots, dtype, rng):
     from hilcodec_tpu_torch.serve import SlotEngine
     engine = SlotEngine(model, params, vq_state, slots=slots,
                         mode="roundtrip", fold=False, dtype=dtype,
-                        device=model.device)
+                        devices=[model.device])
     engine.warmup()
     for _ in range(slots):
         engine.attach()
@@ -3377,7 +3438,7 @@ def phase_option_variant(tmp):
     model, params, vq_state, _ = build_flagship("cuda", cfg)
     hop, B = model.hop_length, SERVE_SLOTS
     engine = SlotEngine(model, params, vq_state, slots=B, fold=False,
-                        device=model.device)
+                        devices=[model.device])
     pcm = np.stack([client_audio(i, hop) for i in range(B)])
     slots = [engine.attach() for _ in range(B)]
     rvq_kernel.reset_launches()
@@ -3559,6 +3620,603 @@ def phase_options(card):
     return {"frames": frames, "export_launches": export_launches}
 
 
+# --------------------------------------------------------------- phase 16
+
+DP_WARMUP = 2
+DP_TIMED = 5
+# the host I/O corpus: seeded speech WAVs of 1.5 s, read in segments of
+# TRAIN_SEGMENT at TRAIN_BATCH a batch
+HOST_FILES = 24
+HOST_FILE_SAMPLES = 36000
+HOST_BATCHES = 20
+LOADER_BATCHES = 8
+SHARD_SLOTS = (SERVE_SLOTS, PATH_STREAMS)
+# the sharded engine and `bench --mesh` on the one card: two shards on it,
+# so the slot split, the per-shard caches and the concatenation run
+SHARD_PAIR = ["cuda:0", "cuda:0"]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def host_corpus(tmp):
+    """(c) HOST_FILES seeded speech WAVs under {tmp}/wavs, and their
+    `DatasetPreprocessed` dump under {tmp}/feats (`{name}_wav.npy` of the
+    WAV as read back, `{name}_pitch.npy` from extract_pitch at the
+    config's data.hop_size) with the filelist {tmp}/feats.txt. Returns
+    (the WAV paths, extract_pitch's ms per audio second)."""
+    from hilcodec_tpu_torch.data.datasets import extract_pitch
+    from hilcodec_tpu_torch.utils.hparams import load_config
+    from hilcodec_tpu_torch.utils.wavio import read_wav, write_wav
+
+    hop = load_config(CONFIG).data.hop_size
+    rng = np.random.default_rng(SEED + 160)
+    for sub in ("wavs", "feats"):
+        os.makedirs(os.path.join(tmp, sub))
+    paths, names, pitch_s = [], [], 0.0
+    for i in range(HOST_FILES):
+        name = f"s{i:02d}"
+        path = os.path.join(tmp, "wavs", f"{name}.wav")
+        write_wav(path, speech_batch(rng, 1, HOST_FILE_SAMPLES)[0, 0], 24000)
+        wav, _ = read_wav(path)
+        t0 = time.perf_counter()
+        pitch, voiced = extract_pitch(wav, 24000, hop)
+        pitch_s += time.perf_counter() - t0
+        if len(pitch) != len(wav) // hop + 1 or not np.isfinite(pitch).all():
+            raise AssertionError(f"extract_pitch of {name}: {pitch.shape}")
+        np.save(os.path.join(tmp, "feats", f"{name}_wav.npy"), wav)
+        np.save(os.path.join(tmp, "feats", f"{name}_pitch.npy"), pitch)
+        paths.append(path)
+        names.append(name)
+    with open(os.path.join(tmp, "feats.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    audio_s = HOST_FILES * HOST_FILE_SAMPLES / 24000
+    return paths, pitch_s * 1e3 / audio_s
+
+
+def loader_config(tmp, dataset):
+    """configs/hilcodec_speech.yaml with its train set on {tmp}'s corpus:
+    `DirectoriesDataset` over {tmp}/wavs or `DatasetPreprocessed` over
+    {tmp}/feats (one batch of TRAIN_BATCH an epoch)."""
+    from hilcodec_tpu_torch.utils.hparams import load_config
+    hps = load_config(CONFIG)
+    data = hps.data
+    data.dataset.train = dataset
+    data.classes.clean.directories_to_include = [os.path.join(tmp, "wavs")]
+    data.length = TRAIN_BATCH * LOADER_BATCHES
+    data.data_dir = os.path.join(tmp, "feats")
+    data.filelists.train = os.path.join(tmp, "feats.txt")
+    return hps
+
+
+def phase_host_io(tmp, paths, pitch_ms, card):
+    """(c) Host numbers on the card's machine's CPU: the native reader's
+    read_batch of TRAIN_BATCH x TRAIN_SEGMENT segments against the stdlib
+    reader on the same segments (equal arrays), ms p50 over HOST_BATCHES
+    batches; the loader's batches a second at TRAIN_BATCH with
+    DirectoriesDataset and with DatasetPreprocessed; extract_pitch's ms
+    per audio second; the files each reader read."""
+    from hilcodec_tpu_torch.data import datasets as DS
+    from hilcodec_tpu_torch.data import native
+    from hilcodec_tpu_torch.data.loader import get_dataset_dataloader
+    from hilcodec_tpu_torch.utils import wavio
+
+    rng = np.random.default_rng(SEED + 161)
+    native.read_batch(paths[:1], [0], 16)                  # builds it
+    nat, std = [], []
+    for _ in range(HOST_BATCHES):
+        pick = rng.integers(0, len(paths), TRAIN_BATCH)
+        starts = rng.integers(0, HOST_FILE_SAMPLES - TRAIN_SEGMENT,
+                              TRAIN_BATCH)
+        files = [paths[i] for i in pick]
+        t0 = time.perf_counter()
+        a = native.read_batch(files, starts, TRAIN_SEGMENT)
+        nat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        b = np.stack([wavio.read_wav(p, int(s), TRAIN_SEGMENT)[0]
+                      for p, s in zip(files, starts)])
+        std.append(time.perf_counter() - t0)
+        if not np.array_equal(a, b):
+            raise AssertionError("native read_batch differs from the "
+                                 "stdlib reader")
+    log(f"[host-io] read_batch of {TRAIN_BATCH} x {TRAIN_SEGMENT} samples "
+        f"(host numbers, this machine's CPU; {card}): native ms p50 "
+        f"{np.percentile(nat, 50) * 1e3:.3f}, stdlib ms p50 "
+        f"{np.percentile(std, 50) * 1e3:.3f} over {HOST_BATCHES} batches "
+        f"({np.percentile(std, 50) / np.percentile(nat, 50):.1f}x); arrays "
+        f"equal")
+    for k in DS.READS:
+        DS.READS[k] = 0
+    rates = {}
+    for dataset in ("DirectoriesDataset", "DatasetPreprocessed"):
+        _, loader = get_dataset_dataloader(loader_config(tmp, dataset),
+                                           "train", ["wav"])
+        n, t0 = 0, time.perf_counter()
+        while n < LOADER_BATCHES:
+            for batch in loader:
+                if batch["wav"].shape != (TRAIN_BATCH, TRAIN_SEGMENT):
+                    raise AssertionError(f"{dataset}: batch "
+                                         f"{batch['wav'].shape}")
+                n += 1
+        rates[dataset] = n / (time.perf_counter() - t0)
+    reads = dict(DS.READS)
+    log(f"[host-io] loader at batch {TRAIN_BATCH} ({loader.num_workers} "
+        f"threads): DirectoriesDataset "
+        f"{rates['DirectoriesDataset']:.1f} batches/s, DatasetPreprocessed "
+        f"{rates['DatasetPreprocessed']:.1f} batches/s over "
+        f"{LOADER_BATCHES} batches each; extract_pitch "
+        f"{pitch_ms:.2f} ms per audio second; files read: native "
+        f"{reads['native']}, stdlib {reads['stdlib']} (host numbers; "
+        f"{card})")
+    if reads["native"] == 0 or reads["stdlib"] != 0:
+        raise AssertionError(f"reads by reader: {reads}")
+    return dict(native_ms=np.percentile(nat, 50) * 1e3,
+                stdlib_ms=np.percentile(std, 50) * 1e3, rates=rates,
+                pitch_ms=pitch_ms, reads=reads)
+
+
+def dp_cli_config(tmp):
+    """configs/hilcodec_speech_synth.yaml training on {tmp}'s
+    DatasetPreprocessed dump: CLI_STEPS steps of CLI_BATCH an epoch, two
+    of the WAVs as its valid filelist; its path."""
+    import yaml
+    with open(os.path.join(ROOT, "configs", "hilcodec_speech_synth.yaml")) \
+            as f:
+        cfg = yaml.safe_load(f)
+    data = cfg["data"]
+    data["dataset"]["train"] = "DatasetPreprocessed"
+    data["data_dir"] = os.path.join(tmp, "feats")
+    data["wav_dir"] = os.path.join(tmp, "wavs")
+    with open(os.path.join(tmp, "dp_train.txt"), "w") as f:
+        f.write("\n".join(f"s{i:02d}" for i in range(CLI_STEPS * CLI_BATCH))
+                + "\n")
+    with open(os.path.join(tmp, "dp_valid.txt"), "w") as f:
+        f.write("s20.wav\ns21.wav\n")
+    data["filelists"] = {"train": os.path.join(tmp, "dp_train.txt"),
+                         "valid": os.path.join(tmp, "dp_valid.txt")}
+    cfg["train"].update(batch_size=CLI_BATCH, max_epochs=1, save_interval=1,
+                        num_workers=0)
+    cfg["valid"] = {"batch_size": 2}
+    path = os.path.join(tmp, "dp_config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def torchrun_train(tmp):
+    """`python -m torch.distributed.run --nproc_per_node 1 -m
+    hilcodec_tpu_torch.train` on dp_cli_config for one epoch, started:
+    (process, start time)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_addr", "127.0.0.1", "--master_port",
+         str(free_port()), "-m", "hilcodec_tpu_torch.train", "-n", "dp",
+         "-b", os.path.join(tmp, "logs"), "-c",
+         os.path.join(tmp, "dp_config.yaml")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, time.perf_counter()
+
+
+def await_torchrun(tmp, started):
+    proc, t0 = started
+    out, _ = proc.communicate(timeout=600)
+    dt = time.perf_counter() - t0
+    for ln in out.strip().splitlines()[-4:]:
+        log(f"[dp-cli]   {ln[:160]}")
+    ckpt = os.path.join(tmp, "logs", "dp", "00001.ckpt.npz")
+    if proc.returncode != 0 or not os.path.exists(ckpt):
+        raise AssertionError(f"torchrun train: rc {proc.returncode}, "
+                             f"{ckpt} written: {os.path.exists(ckpt)}\n"
+                             f"{out[-3000:]}")
+    log(f"[dp-cli] python -m torch.distributed.run --nproc_per_node 1 -m "
+        f"hilcodec_tpu_torch.train on a DatasetPreprocessed corpus: rc 0 "
+        f"in {dt:.1f} s (NCCL, world 1), rank 0 wrote "
+        f"{os.path.relpath(ckpt, tmp)}")
+
+
+def dp_resume(tmp, card):
+    """(a) The torchrun run's checkpoint resumed in this process, in the
+    group of one rank: `TrainLoop` on the run directory (its config copy)
+    for a second epoch; rank 0 writes 00002.ckpt.npz."""
+    from hilcodec_tpu_torch.train.loop import TrainLoop
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    run_dir = os.path.join(tmp, "logs", "dp")
+    t0 = time.perf_counter()
+    loop = TrainLoop(load_config(os.path.join(run_dir, "config.yaml")),
+                     run_dir=run_dir, device="cuda")
+    loop.init_or_resume()
+    resumed = loop.epoch
+    loop.run(max_epochs=2)
+    ckpt = os.path.join(run_dir, "00002.ckpt.npz")
+    if resumed != 1 or loop.n_proc != 1 or not os.path.exists(ckpt):
+        raise AssertionError(f"the resume: epoch {resumed}, world "
+                             f"{loop.n_proc}, {ckpt} written: "
+                             f"{os.path.exists(ckpt)}")
+    log(f"[dp-cli] resumed at epoch {resumed} in this process (TrainLoop "
+        f"in the NCCL group of one rank) and wrote "
+        f"{os.path.relpath(ckpt, tmp)} in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+
+
+def _stop(proc):
+    """Kill a subprocess this phase started if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _flat_equal(a, b):
+    from hilcodec_tpu_torch.utils import params as P
+    fa, fb = P.tree_to_flat(a), P.tree_to_flat(b)
+    return [k for k in fa if not np.array_equal(fa[k], fb[k])], len(fa)
+
+
+def dp_pair(card):
+    """(a) The flagship trainer in an NCCL group of one rank, in this
+    process (the caller initialized it): one step from phase 7's initial
+    state, first batch and draws under deterministic cuDNN, with the
+    group and without (state and metrics bitwise). Returns the trainers,
+    their states after that step and the batches for dp_timed."""
+    import torch
+    from hilcodec_tpu_torch.parallel import dist as D
+    from hilcodec_tpu_torch.train.loop import step_generator
+    from hilcodec_tpu_torch.train.step import to_device
+
+    _, trainer, state = train_setup("cuda", TRAIN_BATCH, SEED + 20)
+    dp = dataclasses.replace(trainer, group=D.default_group())
+    rng = np.random.default_rng(SEED + 21)
+    batches = [to_device(speech_batch(rng, TRAIN_BATCH, TRAIN_SEGMENT),
+                         trainer.device)
+               for _ in range(DP_WARMUP + DP_TIMED)]
+    draws = trainer.sample_draws(step_generator(SEED, 0), batches[0].shape)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        plain, m_plain = trainer.train_step(state, batches[0], draws)
+        grouped, m_dp = dp.train_step(state, batches[0], draws)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    differ, n_leaves = _flat_equal(plain, grouped)
+    m_differ = [k for k in m_plain if not torch.equal(m_plain[k], m_dp[k])]
+    log(f"[dp] one flagship step (batch {TRAIN_BATCH} x {TRAIN_SEGMENT}, "
+        f"phase 7's initial state, first batch and draws) in an NCCL group "
+        f"of one rank against the step without a group, deterministic "
+        f"cuDNN: {n_leaves - len(differ)} / {n_leaves} state leaves and "
+        f"{len(m_plain) - len(m_differ)} / {len(m_plain)} metrics bitwise "
+        f"equal")
+    if differ or m_differ:
+        raise AssertionError(f"the world-1 step differs: "
+                             f"{(differ + m_differ)[:8]}")
+    return dict(trainers={"plain": trainer, "dp": dp},
+                states={"plain": plain, "dp": grouped}, batches=batches)
+
+
+def dp_timed(pair, card, phase7):
+    """(a) The two trainers of dp_pair in turns (plain, grouped, grouped,
+    plain, ...; each on its own state, the same batches and draws):
+    DP_WARMUP - 1 steps each, then DP_TIMED timed (CUDA events), beside
+    phase 7's p50; K1 once a grouped step."""
+    import torch
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.train.loop import step_generator
+
+    trainers, states = pair["trainers"], pair["states"]
+    timed = {"plain": [], "dp": []}
+    launches = 0
+    for i, b in enumerate(pair["batches"][1:]):
+        draws = trainers["plain"].sample_draws(step_generator(SEED, i + 1),
+                                               b.shape)
+        for name in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            rvq_kernel.reset_launches()
+            ev[0].record()
+            states[name], m = trainers[name].train_step(states[name], b,
+                                                        draws)
+            ev[1].record()
+            if i + 1 >= DP_WARMUP:
+                timed[name].append(ev)
+                if name == "dp":
+                    launches += rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+                    m_dp = m
+        if i + 1 == DP_WARMUP - 1:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(m_dp["loss/freq"]))
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in timed.items()}
+    p50 = {k: float(np.percentile(v, 50)) for k, v in ms.items()}
+    log(f"[dp] {DP_TIMED} timed steps in the group of one rank (the G and D "
+        f"gradients, the balancer EMA, the VQ statistics and candidates and "
+        f"the metrics through NCCL), in turns with the step without a "
+        f"group: step ms p50 {p50['dp']:.1f} (all "
+        f"{', '.join(f'{x:.1f}' for x in ms['dp'])}) against "
+        f"{p50['plain']:.1f} without a group (all "
+        f"{', '.join(f'{x:.1f}' for x in ms['plain'])}; "
+        f"{(p50['dp'] / p50['plain'] - 1) * 100:+.1f}%), and phase 7's "
+        f"{phase7['p50']:.1f}; rvq_cascade launches {launches} in the "
+        f"grouped steps ({card})")
+    if launches != DP_TIMED or not finite:
+        raise AssertionError(f"DP steps: {launches} K1 launches in "
+                             f"{DP_TIMED} steps, finite {finite}")
+    return dict(launches=launches, p50=p50["dp"], plain_p50=p50["plain"])
+
+
+def shard_latents(model, params, audio):
+    """The encoder's latents [CLIENT_FRAMES, slots, C] of `audio` (int16
+    [slots, samples]), frame by frame at all the slots' rows, as the
+    unsharded engine's frame step computes them (the tie check's
+    reference)."""
+    import torch
+    hop = model.hop_length
+    wav = torch.from_numpy(audio.astype(np.float32) / 32768.0).to(
+        model.device)[:, None]
+    ce, _ = model.init_cache(len(audio))
+    zs = []
+    with torch.no_grad():
+        for f in range(CLIENT_FRAMES):
+            z, ce = model.codec.encoder.step(params["encoder"], ce,
+                                             wav[:, :, f * hop:(f + 1) * hop])
+            zs.append(z[..., 0].float())
+    return torch.stack(zs)
+
+
+def engine_tokens(tokens):
+    """Engine tokens [F, S, n_q] as the parity report takes them: a tensor
+    [n_q, F * S]."""
+    import torch
+    return torch.from_numpy(tokens.astype(np.int64)).permute(2, 0, 1)
+
+
+def shard_parity(families):
+    """(b) For each family of `families` ({name: (model, params,
+    vq_state)}) at 16 and 128 slots: SlotEngine(devices=SHARD_PAIR), two
+    shards on the one card, against devices=None (one shard), every slot
+    active over CLIENT_FRAMES ticks of seeded client audio. Tokens equal,
+    or f32 ties of the one-shard engine's latents (the rule of the CPU
+    tests' assert_token_parity_exact_or_fp_tie); PCM within PCM_TOL_LSB up
+    to a slot's first differing token; the RVQ kernel once a tick and
+    shard. Returns the flagship's engines (for shard_ticks) and the
+    sharded engines' RVQ launches by (family, slots)."""
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+    from hilcodec_tpu_torch.serve import SlotEngine
+
+    engines, launches = {}, {}
+    for family, (model, params, vq_state) in families.items():
+        hop = model.hop_length
+        for slots in SHARD_SLOTS:
+            audio = np.stack([client_audio(i, hop) for i in range(slots)])
+            out = {}
+            for name, devices in (("plain", None), ("sharded", SHARD_PAIR)):
+                eng = SlotEngine(model, params, vq_state, slots=slots,
+                                 mode="roundtrip", fold=False,
+                                 devices=devices)
+                eng.warmup()
+                for _ in range(slots):
+                    eng.attach()
+                rvq_kernel.reset_launches()
+                toks, pcms = [], []
+                for f in range(CLIENT_FRAMES):
+                    for s in range(slots):
+                        eng.submit(s, audio[s, f * hop:(f + 1) * hop])
+                    res = eng.tick()
+                    toks.append(np.stack([res[s]["tokens"]
+                                          for s in range(slots)]))
+                    pcms.append(np.stack([res[s]["pcm"]
+                                          for s in range(slots)]))
+                out[name] = (np.stack(toks), np.stack(pcms),
+                             rvq_kernel.LAUNCHES[rvq_kernel.KERNEL])
+                if family == "flagship":
+                    engines[slots, name] = eng
+            (ta, pa, la), (tb, pb, lb) = out["plain"], out["sharded"]
+            # tokens [F, S, n_q] -> [n_q, F * S], positions as the latents'
+            x = shard_latents(model, params, audio)
+            rep = rvq.token_parity_report(
+                *(engine_tokens(t) for t in (tb, ta)), x, vq_state["embed"])
+            differ = (ta != tb).any(-1)                       # [F, S]
+            first = np.where(differ.any(0), differ.argmax(0), CLIENT_FRAMES)
+            lsb = max(int(np.abs(pa[:first[s], s].astype(np.int64)
+                                 - pb[:first[s], s]).max(initial=0))
+                      for s in range(slots))
+            log(f"[shard] {family}, {slots} slots x {CLIENT_FRAMES} ticks: "
+                f"SlotEngine(devices={SHARD_PAIR}) ({len(SHARD_PAIR)} "
+                f"shards of {slots // len(SHARD_PAIR)} slots on the one "
+                f"card) against devices=None: token mismatches "
+                f"{int((ta != tb).sum())} of {ta.size} (f32 ties "
+                f"{rep['ties']}, not ties {rep['not_ties']}), PCM max "
+                f"|diff| {lsb} int16 steps up to a slot's first differing "
+                f"token; rvq_cascade launches {lb} / {la}")
+            if (not rep["ok"] or lsb > PCM_TOL_LSB
+                    or lb != CLIENT_FRAMES * len(SHARD_PAIR)
+                    or la != CLIENT_FRAMES):
+                raise AssertionError(f"the sharded {family} engine differs "
+                                     f"at {slots} slots: {rep}")
+            launches[family, slots] = lb
+    return engines, launches
+
+
+def serve_mesh_check(started, model, params, vq_state, sr):
+    """(b) `serve --mesh` (started already): 8 TCP clients x CLIENT_FRAMES
+    frames against an engine in this process on the same weights and the
+    same devices (every visible card): the same tokens, PCM within
+    PCM_TOL_LSB."""
+    import torch
+    from hilcodec_tpu_torch.parallel.dist import mesh_devices
+    from hilcodec_tpu_torch.serve import CodecServer, SlotEngine
+
+    hop, n_q = model.hop_length, model.vq.num_quantizers
+    srv_proc, port, dt = await_serving(started)
+    audio = [client_audio(i, hop) for i in range(N_CLIENTS)]
+
+    async def clients(p):
+        return await asyncio.gather(*(run_client(p, a, hop, n_q)
+                                      for a in audio))
+    try:
+        got = asyncio.run(clients(port))
+    finally:
+        srv_proc.terminate()
+        srv_proc.wait(timeout=30)
+    eng = SlotEngine(model, params, vq_state, slots=SERVE_SLOTS,
+                     mode="roundtrip", fold=False,
+                     devices=mesh_devices(model.device))
+    eng.warmup()
+
+    async def served():
+        srv = CodecServer(eng, sr=sr, port=0)
+        await srv.start()
+        try:
+            return await clients(srv.port)
+        finally:
+            await srv.stop()
+    ref = asyncio.run(served())
+    same = all(np.array_equal(a[0], b[0]) for a, b in zip(got, ref))
+    lsb = max(int(np.abs(a[1].astype(np.int64) - b[1]).max())
+              for a, b in zip(got, ref))
+    log(f"[shard] serve -c {os.path.relpath(CONFIG, ROOT)} --slots "
+        f"{SERVE_SLOTS} --mesh (every visible card: "
+        f"{torch.cuda.device_count()}) serving {dt:.1f} s after start "
+        f"(beside untimed work); {N_CLIENTS} TCP clients x {CLIENT_FRAMES} "
+        f"frames against the engine on the same cards in this process: "
+        f"tokens "
+        f"{'identical' if same else 'DIFFER'}, PCM max |diff| {lsb} int16 "
+        f"steps")
+    if not same or lsb > PCM_TOL_LSB:
+        raise AssertionError("serve --mesh differs from the engine")
+
+
+def shard_ticks(engines, hop, card):
+    """(b) The flagship's two engines of shard_parity (one shard, and two
+    on the one card): tick p50 / p99 at 16 and 128 slots, in turns (a
+    tick each), CLIENT_FRAMES ticks each."""
+    rng = np.random.default_rng(SEED + 162)
+    ticks = {}
+    for slots in SHARD_SLOTS:
+        times = {"plain": [], "sharded": []}
+        for t in range(CLIENT_FRAMES):
+            for name in (("plain", "sharded") if t % 2 == 0
+                         else ("sharded", "plain")):
+                eng = engines[slots, name]
+                for s in range(slots):
+                    eng.submit(s, (rng.standard_normal(hop) * 3000).astype(
+                        np.int16))
+                t0 = time.perf_counter()
+                eng.tick()
+                times[name].append(time.perf_counter() - t0)
+        for name, v in times.items():
+            ticks[slots, name] = (np.percentile(v, 50) * 1e3,
+                                  np.percentile(v, 99) * 1e3)
+        (a50, a99), (b50, b99) = ticks[slots, "plain"], ticks[slots,
+                                                               "sharded"]
+        log(f"[shard] {slots} slots, tick p50 / p99 over {CLIENT_FRAMES} "
+            f"ticks each, the two engines in turns: devices=None {a50:.2f} "
+            f"/ {a99:.2f} ms, devices={SHARD_PAIR} {b50:.2f} / {b99:.2f} "
+            f"ms ({b50 / a50:.2f}x at p50; {card})")
+    return ticks
+
+
+def shard_bench():
+    """(b) The bench at PATH_STREAMS, plain and --megakernel, unsharded
+    and --mesh, one turn each; --mesh spans SHARD_PAIR (its device list
+    replaced, as the CPU test does: two shards of the streams on the one
+    card); every kernel's launches over the --mesh runs."""
+    import torch
+    from hilcodec_tpu_torch import bench
+    from hilcodec_tpu_torch.ops import decoder_kernel as DK
+    from hilcodec_tpu_torch.ops import encoder_kernel as EK
+    from hilcodec_tpu_torch.ops import rvq_kernel
+
+    launches = {}
+    every_card = bench.mesh_devices
+    for extra in ([], ["--megakernel"]):
+        for mesh in ([], ["--mesh"]):
+            argv = [str(PATH_STREAMS), "--seconds", "1"] + extra + mesh
+            for mod in (rvq_kernel, DK, EK):
+                mod.reset_launches()
+            bench.mesh_devices = lambda d: [torch.device(x)
+                                            for x in SHARD_PAIR]
+            try:
+                res = bench.run(argv)
+            finally:
+                bench.mesh_devices = every_card
+            if mesh:
+                launches[bool(extra)] = {
+                    rvq_kernel.KERNEL: rvq_kernel.LAUNCHES[rvq_kernel.KERNEL],
+                    DK.KERNEL: DK.LAUNCHES[DK.KERNEL],
+                    EK.KERNEL: EK.LAUNCHES[EK.KERNEL]}
+            log(f"[shard-bench] python -m hilcodec_tpu_torch.bench "
+                f"{' '.join(argv)}"
+                + (f" (over {SHARD_PAIR})" if mesh else "")
+                + f": {json.dumps(res)}"
+                + (f"; launches {launches[bool(extra)]}" if mesh else ""))
+    frames = (1 + bench.REPS) * CLIENT_FRAMES * len(SHARD_PAIR)
+    if (launches[False][rvq_kernel.KERNEL] != frames
+            or any(v != frames for v in launches[True].values())):
+        raise AssertionError(f"bench --mesh launches {launches}")
+    return launches
+
+
+def phase_parallel(card, phase7):
+    """16. Data parallelism, slot sharding and the host I/O: (c)'s corpus
+    and host numbers first, with nothing else running; then the untimed
+    work of (a) and (b) beside the torchrun CLI run and the `serve --mesh`
+    start-up; the resume; then, with nothing else running, the timed
+    turns of (a) and (b) and the bench."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from hilcodec_tpu_torch.serve.__main__ import serving_weights
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            paths, pitch_ms = host_corpus(tmp)
+            host = phase_host_io(tmp, paths, pitch_ms, card)
+            dp_cli_config(tmp)
+            run = torchrun_train(tmp)
+            started = spawn_serve(CONFIG, slots=SERVE_SLOTS, mesh=True)
+            procs += [run[0], started[0]]
+            torch.cuda.set_device(0)
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                    f"{free_port()}", world_size=1, rank=0)
+            try:
+                pair = dp_pair(card)
+                hps = load_config(CONFIG)
+                model, params, vq_state = serving_weights(hps, device="cuda")
+                engines, engine_launches = shard_parity({
+                    "flagship": (model, params, vq_state),
+                    "encodec": build_encodec("cuda")[:3]})
+                serve_mesh_check(started, model, params, vq_state,
+                                 hps.data.sampling_rate)
+                await_torchrun(tmp, run)
+                dp_resume(tmp, card)
+                dp = dp_timed(pair, card, phase7)
+                del pair
+            finally:
+                dist.destroy_process_group()
+            ticks = shard_ticks(engines, model.hop_length, card)
+            del engines, model, params, vq_state
+            bench = shard_bench()
+        finally:
+            for p in procs:
+                _stop(p)
+    return dict(host=host, dp=dp, shard=dict(
+        engine=engine_launches["flagship", SERVE_SLOTS],
+        engine128=engine_launches["flagship", PATH_STREAMS],
+        encodec=engine_launches["encodec", SERVE_SLOTS],
+        encodec128=engine_launches["encodec", PATH_STREAMS],
+        bench=bench[False], bench_mega=bench[True], ticks=ticks))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3616,6 +4274,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = phase_options(line)
     done(15)
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(line, train)
+    done(16)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -3637,6 +4298,12 @@ def main() -> int:
         "launches_remat_train_path": options["remat"]["launches"],
         "launches_bf16_remat_train_path": options["bf16+remat"]["launches"],
         "launches_export_program": serving["export_launches"],
+        "launches_dp_train_path": parallel["dp"]["launches"],
+        "launches_sharded_engine": parallel["shard"]["engine"],
+        "launches_sharded_engine_128": parallel["shard"]["engine128"],
+        "launches_bench_mesh": parallel["shard"]["bench"][rvq_kernel.KERNEL],
+        "launches_bench_mesh_megakernel":
+            parallel["shard"]["bench_mega"][rvq_kernel.KERNEL],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]
@@ -3649,6 +4316,8 @@ def main() -> int:
         "replaces": "hilcodec_tpu/ops/pallas_rvq.py:130",
         "launches": encodec["serve_launches"],
         "launches_train_path": encodec["train"]["launches"],
+        "launches_sharded_engine": parallel["shard"]["encodec"],
+        "launches_sharded_engine_128": parallel["shard"]["encodec128"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_m1800": timings[(1800, 32)][0],
@@ -3707,6 +4376,8 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bounds["tc"][0],
             "bound_by": bounds["tc"][1], "bound_f32_ms": bounds["f32"][0],
             "bound_f32_by": bounds["f32"][1], "library_ms": None,
+            "launches_bench_mesh_megakernel":
+                parallel["shard"]["bench_mega"][mod.KERNEL],
             "launches_t4": t4_launches, "ms_t4": t4_ms,
             "plain_ms_t4": t4_plain_ms, "bound_ms_t4": t4_bound[0],
             "bound_t4_by": t4_bound[1]})

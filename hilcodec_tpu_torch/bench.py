@@ -4,7 +4,7 @@ Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
       [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
       [--model hilcodec|encodec|avocodo|audiodec] [--dtype f32|bf16w|bf16]
-      [--depthwise conv|shift] [--device D]
+      [--depthwise conv|shift] [--mesh] [--device D]
 
 The model is the operating point of bench.py for its family: HILCodec
 defaults with both res_scale set (the flagship), `--model encodec`,
@@ -26,8 +26,14 @@ the caches (`models/codec.cast_streaming_params`); the latents reach the
 RVQ kernel in f32 either way. --depthwise takes bench.py's names (`conv`,
 `shift`), which choose how XLA lowers the depthwise convs; both are the
 same function, one convolution here (`ops/conv.DEPTHWISE_LOWERINGS`), so
-the run and its metric do not change. Runs on CUDA unless --device names
-another device, and raises without CUDA.
+the run and its metric do not change. --mesh splits the streams evenly
+over every visible card, each card with its own copy of the params and
+its own caches, as bench.py's --mesh shards them over the JAX devices;
+the shards are placed and launched as the serving engine's are (one
+host thread launches every card's frames before it awaits any). The
+metric is the same; the unit names the cards; on the CPU the mesh is the
+one device. Runs on CUDA unless --device
+names another device, and raises without CUDA.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"} with
 vs_baseline = value / 100 (the rebuild target of bench.py). The metric
@@ -36,7 +42,7 @@ bench.py's suffixes (`_{model}` for a family other than HILCodec, then
 `_bf16w` / `_bf16`, then the port's `_megakernel`, `_fused` and `_fF`),
 and the unit names the device. --fused and --megakernel do not combine,
 and neither does --fused with --dispatch, which times encode_stream and
-decode_stream.
+decode_stream, nor --mesh with --dispatch, which times one device.
 """
 
 from __future__ import annotations
@@ -59,15 +65,15 @@ from .models.codec import cast_streaming_params
 from .models.hilcodec import HILCodec
 from .ops.conv import DEPTHWISE_LOWERINGS
 from .ops.rvq import ResidualVQ
+from .parallel.dist import mesh_devices, place_shards
 
 SAMPLE_RATE = 24000
 REPS = 3
 DISPATCH_BLOCKING = 100
 DISPATCH_PIPELINED = 200
-# bench.py options the port refuses: slot sharding is not ported yet; the
-# other two tune XLA's scan and mean nothing to an eager PyTorch loop
+# bench.py options the port refuses: both tune XLA's scan and mean nothing
+# to an eager PyTorch loop
 _REFUSED = {
-    "--mesh": "is not ported to hilcodec_tpu_torch yet (see ROADMAP.md)",
     "--unroll": "unrolls the XLA scan of the JAX drivers; the port's "
                 "frame loop is eager PyTorch and has no such knob",
     "--chunks": "splits the XLA scan's streams into groups; the port's "
@@ -87,6 +93,7 @@ class Args:
     frames: int = 1
     model: str = "hilcodec"
     dtype: str = "f32"
+    mesh: bool = False
 
 
 def _value(argv: List[str], flag: str) -> str:
@@ -101,7 +108,7 @@ def _value(argv: List[str], flag: str) -> str:
 def parse_args(argv: List[str]) -> Args:
     """[streams] [--seconds S] [--frames F] [--megakernel|--no-megakernel]
     [--fused] [--dispatch] [--model M] [--dtype D] [--depthwise L]
-    [--device D]; fails fast on malformed or refused options."""
+    [--mesh] [--device D]; fails fast on malformed or refused options."""
     argv = list(argv)
     for flag, why in _REFUSED.items():
         if flag in argv:
@@ -124,14 +131,17 @@ def parse_args(argv: List[str]) -> Args:
         sys.exit(f"error: --megakernel: the frame kernels run HILCodec "
                  f"only, not --model {model}")
     fused, dispatch = "--fused" in argv, "--dispatch" in argv
+    mesh = "--mesh" in argv
     argv = [a for a in argv if a not in ("--megakernel", "--no-megakernel",
-                                         "--fused", "--dispatch")]
+                                         "--fused", "--dispatch", "--mesh")]
     if fused and mega:
         sys.exit("error: --fused has no frame-kernel path "
                  "(encode_decode_stream runs the plain frame step)")
     if fused and dispatch:
         sys.exit("error: --dispatch times encode_stream and decode_stream "
                  "a frame a call; it takes no --fused")
+    if mesh and dispatch:
+        sys.exit("error: --dispatch times one device; it takes no --mesh")
     device = _value(argv, "--device") if "--device" in argv else None
     seconds = 4.0
     if "--seconds" in argv:
@@ -162,7 +172,7 @@ def parse_args(argv: List[str]) -> Args:
     if streams < 1 or len(argv) > 1:
         sys.exit("error: one positive stream count expected")
     return Args(streams, seconds, mega, fused, dispatch, device, frames,
-                model, dtype)
+                model, dtype, mesh)
 
 
 def _bench_vq(dim: int = 128) -> ResidualVQ:
@@ -262,6 +272,12 @@ def _suffix(args: Args) -> str:
     return out
 
 
+def bench_devices(model: CodecModel, args: Args) -> List[torch.device]:
+    """The devices the streams are split over: every visible card with
+    --mesh (`parallel/dist.mesh_devices`), else the model's device."""
+    return mesh_devices(model.device) if args.mesh else [model.device]
+
+
 @torch.no_grad()
 def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
     """Aggregate real-time factor of streaming encode+decode."""
@@ -272,23 +288,40 @@ def stream_bench(model: CodecModel, params, vq_state, args: Args) -> dict:
         sys.exit(f"error: --seconds {args.seconds} is shorter than "
                  f"{f} frame(s)")
     dtype = act_dtype(args)
-    wav = _noise((args.streams, 1, n_frames * hop), device, dtype)
-    *_, ce, cd = encode_decode(model, params, vq_state, wav,
-                               *model.init_cache(args.streams, dtype), args)
-    _sync(device)                                     # warm-up
+    wav = _noise((args.streams, 1, n_frames * hop), torch.device("cpu"),
+                 dtype)
+    try:
+        placed = place_shards(model, params, vq_state,
+                              bench_devices(model, args), args.streams)
+    except ValueError as e:
+        sys.exit(f"error: --mesh: {e}")
+    shards = [(m, p, v, wav[rows.start:rows.stop].to(m.device),
+               list(m.init_cache(len(rows), dtype)))
+              for m, p, v, rows in placed]
+
+    def one():
+        # every shard's frames are launched from this thread before any
+        # is awaited, as the engine's tick launches every shard's step
+        for m, p, v, w, caches in shards:
+            *_, caches[0], caches[1] = encode_decode(m, p, v, w, *caches,
+                                                     args)
+        for m, *_ in shards:
+            _sync(m.device)
+
+    one()                                             # warm-up
     dt = 0.0
     for _ in range(REPS):
         t0 = time.perf_counter()
-        *_, ce, cd = encode_decode(model, params, vq_state, wav, ce, cd,
-                                   args)
-        _sync(device)
+        one()
         dt += time.perf_counter() - t0
     rtf = args.streams * n_frames * hop / SAMPLE_RATE / (dt / REPS)
     metric = "torch_streaming_encdec_rtf" + _suffix(args)
     block = f", block={f} frames" if f != 1 else ""
+    cards = f", cards={len(shards)}" if args.mesh else ""
     return {"metric": metric, "value": round(rtf, 2),
             "unit": f"x_realtime_24khz (streams={args.streams}, frame={hop} "
-                    f"samples{block}, device={_device_name(device)})",
+                    f"samples{block}, device={_device_name(device)}"
+                    f"{cards})",
             "vs_baseline": round(rtf / 100.0, 3)}
 
 

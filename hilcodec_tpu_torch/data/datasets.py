@@ -1,10 +1,17 @@
 """Datasets (`hilcodec_tpu/data/datasets.py`): the directory-walk training
-set and the filelist evaluation sets, on numpy and the port's `wavio`.
+set, the filelist evaluation sets, the preprocessed-feature set and the
+paired clean / noisy set, on numpy and the port's WAV readers.
 
 Class-probability sampling with optional mixing, RandomGain in dB, random
 fixed-size segment reads by seeking in the WAV file, peak renormalization
 above 1.0, length-sorted batch grouping and an epoch-seeded shuffle for
-filelist sets. WAV only.
+filelist sets. A WAV is read by the native reader (`data/native.py`); a
+file it refuses (a 64-bit float WAV) by the stdlib one, file by file, as
+the JAX package does. Every other extension goes to `soundfile`, which is
+optional: without it a non-WAV path raises, and a directory walk that
+finds one fails at construction. `READS` counts the files each reader
+read. `extract_pitch` tracks pitch with parselmouth where it is installed
+and with the numpy YIN of `data/pitch_np.py` otherwise.
 """
 
 from __future__ import annotations
@@ -18,9 +25,80 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.wavio import read_wav, wav_info
+from ..utils import wavio
+from . import native
 
-AUDIO_EXT = (".wav", ".WAV")
+AUDIO_EXT = (".wav", ".WAV", ".flac", ".FLAC", ".mp3")
+WAV_EXT = (".wav", ".WAV")
+# files read by each reader since the process started
+READS = {"native": 0, "stdlib": 0, "soundfile": 0}
+
+
+def _soundfile():
+    """The optional decoder of non-WAV audio, or None."""
+    try:
+        import soundfile
+        return soundfile
+    except ImportError:
+        return None
+
+
+def _no_decoder_error(path: str) -> RuntimeError:
+    return RuntimeError(
+        f"cannot decode {path!r}: only RIFF/WAV decoding is built in; "
+        "non-WAV audio (flac/mp3) requires the optional `soundfile` "
+        "backend, which is not installed. Install soundfile or convert "
+        "the corpus to wav.")
+
+
+def read_audio_fallback(path: str, start: int = 0,
+                        frames: Optional[int] = None, mono: bool = True):
+    """Non-WAV audio through `soundfile`: (float32 data, sample_rate)."""
+    sf = _soundfile()
+    if sf is None:
+        raise _no_decoder_error(path)
+    with sf.SoundFile(path) as f:
+        if start:
+            f.seek(start)
+        data = f.read(-1 if frames is None else frames, dtype="float32",
+                      always_2d=True)
+        sr = f.samplerate
+    if mono:
+        data = data.mean(axis=1)
+    READS["soundfile"] += 1
+    return np.ascontiguousarray(data), sr
+
+
+def read_wav(path: str, start: int = 0, frames: Optional[int] = None,
+             mono: bool = True):
+    """(float32 data, sample_rate): the native reader for a WAV, the stdlib
+    reader for a WAV the native one refuses, soundfile for the rest."""
+    if not path.endswith(WAV_EXT):
+        return read_audio_fallback(path, start, frames, mono)
+    try:
+        data = native.read_segment(path, start,
+                                   -1 if frames is None else frames)
+        _n, sr, _c = native.wav_info(path)
+        READS["native"] += 1
+        return data, sr
+    except native.Refused:
+        pass
+    READS["stdlib"] += 1
+    return wavio.read_wav(path, start, frames, mono)
+
+
+def wav_info(path: str):
+    """(num_frames, sample_rate, channels), by the reader read_wav uses."""
+    if not path.endswith(WAV_EXT):
+        sf = _soundfile()
+        if sf is None:
+            raise _no_decoder_error(path)
+        info = sf.info(path)
+        return info.frames, info.samplerate, info.channels
+    try:
+        return native.wav_info(path)
+    except native.Refused:
+        return wavio.wav_info(path)
 
 
 def _rngs(rng: Optional[np.random.Generator]
@@ -63,8 +141,7 @@ def make_transforms(transforms_cfg) -> List[Any]:
 
 
 class Directories:
-    """Recursive walk of include-dirs minus excludes; uniform file choice
-   ."""
+    """Recursive walk of include-dirs minus excludes; uniform file choice."""
 
     def __init__(self, directories_to_include: Sequence[str],
                  directories_to_exclude: Sequence[str] = (),
@@ -101,10 +178,11 @@ class Directories:
                         found.append(str(full))
             if not found:
                 raise RuntimeError(f"no audio files under {directory}")
-            non_wav = [f for f in found if not f.endswith(AUDIO_EXT)]
-            if non_wav:
-                raise RuntimeError(f"cannot decode {non_wav[0]!r}: only "
-                                   "WAV is read; convert the corpus")
+            # fail at construction, not as "10 failed loads" mid-epoch
+            if _soundfile() is None:
+                non_wav = [f for f in found if not f.endswith(WAV_EXT)]
+                if non_wav:
+                    raise _no_decoder_error(non_wav[0])
             found.sort()
             self.files.extend(found)
 
@@ -113,8 +191,7 @@ class Directories:
 
 
 class DirectoriesDataset:
-    """Training dataset used by the shipped configs
-   : virtual length, per-item class sampling,
+    """Training dataset used by the shipped configs: virtual length, per-item class sampling,
     random segment via direct wave seek, mixing, RandomGain, peak renorm."""
 
     def __init__(self, hp, keys: Sequence[str], mode: str = "train",
@@ -152,8 +229,7 @@ class DirectoriesDataset:
         pass
 
     def _load_segment(self, path: str, rng: random.Random) -> np.ndarray:
-        """Random fixed-size segment; short files are center-padded
-       ."""
+        """Random fixed-size segment; short files are center-padded."""
         n_frames, sr, _ch = wav_info(path)
         assert sr == self.sampling_rate, (path, sr)
         if n_frames == 0:
@@ -326,6 +402,125 @@ class FilelistDataset:
         if "wav_len" in self.keys:
             data["wav_len"] = len(wav)
         return data
+
+
+class PreprocessedDataset(FilelistDataset):
+    """`DatasetPreprocessed`: a filelist set that loads features dumped to
+    `data_dir` as `{name}_wav.npy` (and `_spec`, `_mel`, `_pitch` for the
+    keys that ask for them) instead of decoding audio."""
+
+    def __getitem__(self, idx: int,
+                    rng: Optional[np.random.Generator] = None
+                    ) -> Dict[str, Any]:
+        _np_rng, py_rng = _rngs(rng)
+        data: Dict[str, Any] = {}
+        name = str(self.wav_idx[idx])
+        base = os.path.join(getattr(self.hp, "data_dir", ""), name)
+        if "filename" in self.keys:
+            data["filename"] = name
+        wav = np.load(f"{base}_wav.npy")
+        if self.segment_size is not None:
+            if len(wav) >= self.segment_size:
+                start = py_rng.randint(0, len(wav) - self.segment_size)
+                wav = wav[start:start + self.segment_size]
+            else:
+                wav = np.pad(wav, (0, self.segment_size - len(wav)))
+        data["wav"] = wav.astype(np.float32)
+        for key in ("spec", "mel", "pitch"):
+            if key in self.keys:
+                data[key] = np.load(f"{base}_{key}.npy")
+        return data
+
+
+class PairedCleanNoisyDataset:
+    """Paired clean / noisy files of one name under `clean_dir` and
+    `noisy_dir`, cut at the same random start in both."""
+
+    def __init__(self, hp, keys: Sequence[str] = ("clean", "noisy"),
+                 mode: str = "train", batch_size: int = 1,
+                 verbose: bool = True):
+        self.hp = hp
+        self.keys = list(keys)
+        self.clean_dir = hp.clean_dir
+        self.noisy_dir = hp.noisy_dir
+        self.segment_size = (None if mode == "infer"
+                             else getattr(hp, "segment_size", None))
+        with open(hp.filelists[mode]) as f:
+            self.files = [l.strip() for l in f if l.strip()]
+
+    def shuffle(self, seed: int) -> None:
+        random.Random(seed).shuffle(self.files)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def _read_pair(self, name: str,
+                   py_rng: random.Random) -> Tuple[np.ndarray, np.ndarray]:
+        cpath = os.path.join(self.clean_dir, name)
+        npath = os.path.join(self.noisy_dir, name)
+        n_frames, sr, _ = wav_info(cpath)
+        assert sr == self.hp.sampling_rate
+        seg = self.segment_size
+        if seg is None or n_frames < seg:
+            clean, _ = read_wav(cpath)
+            noisy, _ = read_wav(npath)
+            if seg is not None:
+                pad = seg - len(clean)
+                clean = np.pad(clean, (pad // 2, pad - pad // 2))
+                noisy = np.pad(noisy, (pad // 2, pad - pad // 2))
+            return clean, noisy
+        start = py_rng.randint(0, n_frames - seg)
+        clean, _ = read_wav(cpath, start=start, frames=seg)
+        noisy, _ = read_wav(npath, start=start, frames=seg)
+        return clean, noisy
+
+    def __getitem__(self, idx: int,
+                    rng: Optional[np.random.Generator] = None
+                    ) -> Dict[str, Any]:
+        _np_rng, py_rng = _rngs(rng)
+        name = self.files[idx]
+        clean, noisy = self._read_pair(name, py_rng)
+        data: Dict[str, Any] = {"clean": clean.astype(np.float32),
+                                "noisy": noisy.astype(np.float32)}
+        if "filename" in self.keys:
+            data["filename"] = name
+        return data
+
+
+def extract_pitch(wav: np.ndarray, sampling_rate: int, hop_size: int,
+                  fmin: float = 75.0, fmax: float = 600.0,
+                  log_pitch: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """(pitch, voiced) per hop: parselmouth where it is installed, else the
+    numpy YIN of `data/pitch_np.py` (the same per-hop (f0, voiced)
+    contract); the pitch is interpolated linearly over unvoiced frames and
+    held at its first and last voiced values."""
+    from scipy.interpolate import interp1d
+    try:
+        import parselmouth
+    except ImportError:
+        from .pitch_np import pitch_np
+        pitch = pitch_np(wav, sampling_rate, hop_size, fmin, fmax)
+    else:
+        padding = int(math.floor(
+            sampling_rate / fmin * 3 / 2 - hop_size / 2)) + 1
+        padded = np.pad(wav, (padding, padding))
+        snd = parselmouth.Sound(padded, sampling_rate)
+        pitch = snd.to_pitch(time_step=hop_size / sampling_rate,
+                             pitch_floor=fmin,
+                             pitch_ceiling=fmax).selected_array["frequency"]
+    voiced = np.sign(pitch).astype(np.float32)
+    nz = np.where(pitch != 0)[0]
+    if len(nz) == 0:
+        pitch = np.full_like(pitch, fmin)
+    else:
+        pitch[:nz[0]] = pitch[nz[0]]
+        pitch[nz[-1]:] = pitch[nz[-1]]
+        nz = np.where(pitch != 0)[0]
+        interp = interp1d(nz, pitch[nz])
+        pitch = interp(np.arange(len(pitch)))
+    if log_pitch:
+        pitch = np.log(pitch)
+    return pitch.astype(np.float32), voiced
 
 
 def _resample(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

@@ -17,7 +17,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from .datasets import DirectoriesDataset, FilelistDataset, collate
+from .datasets import (DirectoriesDataset, FilelistDataset,
+                       PreprocessedDataset, collate)
 
 
 class DataLoader:
@@ -127,6 +128,7 @@ class DataLoader:
 _DATASETS = {
     "Dataset": FilelistDataset,
     "DirectoriesDataset": DirectoriesDataset,
+    "DatasetPreprocessed": PreprocessedDataset,
 }
 
 
@@ -143,10 +145,6 @@ def get_dataset_dataloader(hps, mode: str, keys: List[str],
     dataset_cfg = hps.data.dataset
     name = dataset_cfg[mode] if not isinstance(dataset_cfg, str) \
         else dataset_cfg
-    if name not in _DATASETS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported to hilcodec_tpu_torch yet; see "
-            "ROADMAP.md (Queue 1, framework-neutral modules)")
     cls = _DATASETS[name]
 
     hp = hps.train

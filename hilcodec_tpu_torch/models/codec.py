@@ -171,15 +171,17 @@ class CodecModel:
 
     # -- training graph -----------------------------------------------------
     def forward(self, params: Params, vq_state: Q.VQState, wav: torch.Tensor,
-                draws: Optional[Q.RVQDraws] = None, training: bool = True
-                ) -> Tuple[torch.Tensor, Q.VQState, torch.Tensor,
-                           torch.Tensor]:
+                draws: Optional[Q.RVQDraws] = None, training: bool = True,
+                group=None) -> Tuple[torch.Tensor, Q.VQState, torch.Tensor,
+                                     torch.Tensor]:
         """wav [B, 1, T] -> (wav_g [B, 1, T], new_vq_state, loss_vq,
         num_replaces): encoder, RVQ (the kernel's stage indices, EMA update
-        when training, straight-through output), decoder."""
+        when training, straight-through output), decoder. `group`: the
+        process group of a data-parallel step (its VQ statistics are
+        summed over the ranks)."""
         z = self.codec.encoder.apply(params["encoder"], wav)
         q, vq_state, loss_vq, num_replaces, _ = self.vq(
-            z.float(), vq_state, draws, training)
+            z.float(), vq_state, draws, training, group)
         wav_g = self.codec.decoder.apply(params["decoder"], q.to(z.dtype))
         return wav_g.float(), vq_state, loss_vq, num_replaces
 

@@ -4,12 +4,12 @@ Each `csrc/<name>.cu` exports a plain C interface and is compiled with
 nvcc on first use into `_build/lib<name>-<hash>.so` inside the package
 (listed in `.gitignore`), keyed by a hash of the source and the flags, so
 that a checkout builds from its own sources and never reuses a stale
-library. A host library, `csrc/<name>.cpp` (the range coder), is built
-the same way with g++ (`build_host` / `load_host`). Each build writes a
-temporary file named by its process and renames it into place, so
-concurrent builds of one source never share a file. Nothing here runs at
-import time: the CPU tests import every module, and `nvcc` is needed only
-when a kernel is first launched.
+library. A host library, `csrc/<name>.cpp` (the range coder, the WAV
+reader), is built the same way with g++ (`build_host` / `load_host`).
+Each build writes a temporary file named by its process and renames it
+into place, so concurrent builds of one source never share a file.
+Nothing here runs at import time: the CPU tests import every module, and
+`nvcc` is needed only when a kernel is first launched.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def nvcc() -> str:
     return found
 
 
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def _library_path(name: str, ext: str, flags) -> Path:
@@ -89,8 +89,9 @@ def gxx() -> str:
     """Path of the host C++ compiler: $CXX, else g++ on PATH."""
     found = shutil.which(os.environ.get("CXX", "g++"))
     if found is None:
-        raise RuntimeError("g++ not found (set CXX): the native range coder "
-                           "is built from csrc/rangecoder.cpp")
+        raise RuntimeError("g++ not found (set CXX): the host libraries "
+                           "(csrc/rangecoder.cpp, csrc/wavio.cpp) are "
+                           "built with it")
     return found
 
 

@@ -16,6 +16,12 @@ initializes the codebooks from a first batch. Everything random (the
 dropout depth, the expiry candidates, the k-means seeds) is drawn by the
 caller and passed in (`RVQDraws`, `kmeans_init_indices`).
 
+Data parallelism: given a process group, the training pass sums each
+stage's `[num; embed]` statistics bucket over the ranks and takes rank
+0's expiry candidates, and k-means runs on rank 0's rows, as the JAX
+quantizer does under its `axis_name`; every rank then holds the same
+state.
+
 `NoVQ` is the `vq: ''` ablation: the latents pass straight through.
 """
 
@@ -27,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist as D
 from .conv import row_matmul
 
 VQState = Dict[str, torch.Tensor]
@@ -207,13 +214,15 @@ class ResidualVQ:
 
     # -- k-means initialization -----------------------------------------------
     def kmeans_init_state(self, state: VQState, x: torch.Tensor,
-                          init_idx: torch.Tensor) -> VQState:
+                          init_idx: torch.Tensor, group=None) -> VQState:
         """Every codebook from k-means on the residuals of the latents
-        x [B, C, T], stage by stage; `init_idx` from kmeans_init_indices."""
+        x [B, C, T], stage by stage; `init_idx` from kmeans_init_indices.
+        With a group, the rows are rank 0's."""
         if not self.kmeans_init:
             return state
         with torch.no_grad():
             residual = x.transpose(1, 2).reshape(-1, self.dim).float()
+            residual = D.broadcast0(residual, group)
             init_idx = init_idx.to(residual.device)
             embeds = []
             for s in range(self.num_quantizers):
@@ -231,12 +240,14 @@ class ResidualVQ:
 
     # -- the training pass ----------------------------------------------------
     def __call__(self, x: torch.Tensor, state: VQState,
-                 draws: Optional[RVQDraws] = None, training: bool = True
+                 draws: Optional[RVQDraws] = None, training: bool = True,
+                 group=None
                  ) -> Tuple[torch.Tensor, VQState, torch.Tensor,
                             torch.Tensor, torch.Tensor]:
         """One RVQ pass over latents x [B, C, T].
 
-        `draws=None` runs every stage (evaluation). Returns (quantized
+        `draws=None` runs every stage (evaluation); `group` is the process
+        group the EMA statistics are summed over. Returns (quantized
         [B, C, T], new_state, loss_vq, num_replaces [n_q] int32, indices
         [n_q, B, T] int32); inactive stages give index 0, contribute
         nothing and keep their state."""
@@ -259,7 +270,7 @@ class ResidualVQ:
                 q = embed[s][idx[s]]
                 if training:
                     self._ema_update(s, new, replaces, residual, idx[s],
-                                     flat0, draws)
+                                     flat0, draws, group)
                 residual, q_sum = residual - q, q_sum + q
         quantized = q_sum.reshape(B, T, C)
         loss_vq = torch.mean(torch.square(xcl.float() - quantized))
@@ -276,12 +287,19 @@ class ResidualVQ:
 
     def _ema_update(self, s: int, new: Dict[str, list], replaces: list,
                     residual: torch.Tensor, idx: torch.Tensor,
-                    flat0: torch.Tensor, draws: Optional[RVQDraws]) -> None:
-        """Stage s's EMA statistics, codebook and dead-code expiry."""
+                    flat0: torch.Tensor, draws: Optional[RVQDraws],
+                    group=None) -> None:
+        """Stage s's EMA statistics (summed over the group's ranks as one
+        [K, 1 + C] bucket), codebook and dead-code expiry (rank 0's
+        candidates)."""
         K = self.codebook_size
         onehot = F.one_hot(idx, K).float()
         num_curr = onehot.sum(0)
         embed_curr = onehot.T @ residual
+        if group is not None:
+            bucket = D.all_sum(torch.cat([num_curr[:, None], embed_curr], 1),
+                               group)
+            num_curr, embed_curr = bucket[:, 0], bucket[:, 1:]
         d = self.decay
         ema_num = new["ema_num"][s] * d + num_curr * (1 - d)
         ema_embed = new["ema_embed"][s] * d + embed_curr * (1 - d)
@@ -298,7 +316,8 @@ class ResidualVQ:
                 raise ValueError("dead-code expiry needs candidate rows "
                                  "(RVQDraws.expire_idx)")
             expired = ema_num < self.ema_num_threshold
-            cand = flat0[draws.expire_idx[s].to(flat0.device)]
+            cand = D.broadcast0(flat0[draws.expire_idx[s].to(flat0.device)],
+                                group)
             embed = torch.where(expired[:, None], cand, embed)
             ema_embed = torch.where(expired[:, None],
                                     cand * self.ema_num_initial, ema_embed)
@@ -326,11 +345,12 @@ class NoVQ:
         return RVQDraws(0)
 
     def kmeans_init_state(self, state: VQState, x: torch.Tensor,
-                          init_idx: torch.Tensor) -> VQState:
+                          init_idx: torch.Tensor, group=None) -> VQState:
         return state
 
     def __call__(self, x: torch.Tensor, state: VQState,
-                 draws: Optional[RVQDraws] = None, training: bool = True):
+                 draws: Optional[RVQDraws] = None, training: bool = True,
+                 group=None):
         zero = torch.zeros((), device=x.device)
         return (x, state, zero,
                 torch.zeros((0,), dtype=torch.int32, device=x.device), None)

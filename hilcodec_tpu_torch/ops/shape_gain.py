@@ -17,6 +17,9 @@ gain; the reconstruction is exp(gain) * shape. The inner-product GEMM is
 a plain `torch.matmul` in f32, as it is a plain product outside any
 kernel in the JAX package. The random expiry candidates are drawn by the
 caller and passed in (`ShapeGainDraws`), like `RVQDraws.expire_idx`.
+Given a process group, a training step sums its statistics bucket over
+the ranks and takes rank 0's shape and gain candidates, as the JAX
+codebook does under its `axis_name`.
 Token encode / decode and the streaming drivers need a Euclidean codebook
 and do not take this quantizer; the codec reconstructs through `forward`.
 """
@@ -28,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import dist as D
 
 SGState = Dict[str, torch.Tensor]
 
@@ -100,12 +105,13 @@ class ShapeGainCodebook:
 
     def train_step(self, flatten: torch.Tensor, state: SGState,
                    shape_idx: Optional[torch.Tensor] = None,
-                   gain_idx: Optional[torch.Tensor] = None
+                   gain_idx: Optional[torch.Tensor] = None, group=None
                    ) -> Tuple[torch.Tensor, SGState, torch.Tensor,
                               torch.Tensor]:
         """One EMA update (no gradient); `shape_idx` / `gain_idx` are the
-        expiry candidate rows. Returns (quantize, new_state,
-        n_shape_replace, n_gain_replace)."""
+        expiry candidate rows; `group` the process group the statistics
+        are summed over. Returns (quantize, new_state, n_shape_replace,
+        n_gain_replace)."""
         flatten = flatten.float()
         quantize, shape_ind, gain_ind, gain_target = self.quantize(
             flatten, state)
@@ -116,6 +122,13 @@ class ShapeGainCodebook:
         shape_new = flatten.T @ shape_onehot                    # [C, scs]
         gain_num_new = gain_onehot.sum(0)
         gain_new = (gain_target.T @ gain_onehot).squeeze(0)
+        if group is not None:
+            bucket = D.all_sum(torch.cat([gain_num_new, shape_num_new,
+                                          gain_new, shape_new.reshape(-1)]),
+                               group)
+            gain_num_new, shape_num_new, gain_new, shape_new = bucket.split(
+                [gcs, scs, gcs, self.dim * scs])
+            shape_new = shape_new.reshape(self.dim, scs)
         shape_new = shape_new / torch.clamp(
             torch.linalg.norm(shape_new, dim=0, keepdim=True), min=self.eps)
         gain_new = gain_new / torch.clamp(gain_num_new, min=self.eps)
@@ -133,7 +146,7 @@ class ShapeGainCodebook:
                 raise ValueError("shape-gain expiry needs candidate rows "
                                  "(ShapeGainDraws)")
             expired_s = shape_num < self.ema_num_threshold
-            cand = _l2norm(flatten)[shape_idx]
+            cand = D.broadcast0(_l2norm(flatten)[shape_idx], group)
             shape = torch.where(expired_s[:, None], cand, shape)
             shape_num = torch.where(expired_s, torch.full_like(
                 shape_num, self.ema_num_initial), shape_num)
@@ -141,7 +154,7 @@ class ShapeGainCodebook:
 
             thr_g = self.ema_num_threshold * self.gain_num_ratio
             expired_g = gain_num < thr_g
-            gcand = gain_target.squeeze(1)[gain_idx]
+            gcand = D.broadcast0(gain_target.squeeze(1)[gain_idx], group)
             gain = torch.where(expired_g, gcand, gain)
             gain_num = torch.where(expired_g, torch.full_like(
                 gain_num, self.ema_num_initial * self.gain_num_ratio),
@@ -179,7 +192,8 @@ class ResidualShapeGainVQ:
                 for k in states[0]}
 
     def __call__(self, x: torch.Tensor, state: SGState,
-                 draws: Optional[Any] = None, training: bool = True
+                 draws: Optional[Any] = None, training: bool = True,
+                 group=None
                  ) -> Tuple[torch.Tensor, SGState, torch.Tensor,
                             torch.Tensor]:
         """(quantized [B, C, T], new_state, loss, replaces [n_q] int32).
@@ -203,7 +217,7 @@ class ResidualShapeGainVQ:
                     idx = ((None, None) if self.ema_num_threshold <= 0.0
                            else (draws.shape_idx[i], draws.gain_idx[i]))
                     q, st, nr_s, nr_g = self.codebook.train_step(
-                        residual, st, *idx)
+                        residual, st, *idx, group=group)
                     replaces.append(nr_s + nr_g)
                 else:
                     q = self.codebook.quantize(residual, st)[0]
@@ -265,10 +279,11 @@ class ShapeGainVQBridge:
                           generator=gen))
 
     def kmeans_init_state(self, state: SGState, x: torch.Tensor,
-                          init_idx: torch.Tensor) -> SGState:
+                          init_idx: torch.Tensor, group=None) -> SGState:
         """No-op: the codebooks start random (no k-means warm-up)."""
         return state
 
-    def __call__(self, x, state, draws=None, training=True):
-        q, state, loss, replaces = self.rvq(x, state, draws, training)
+    def __call__(self, x, state, draws=None, training=True, group=None):
+        q, state, loss, replaces = self.rvq(x, state, draws, training,
+                                            group)
         return q, state, loss, replaces, None

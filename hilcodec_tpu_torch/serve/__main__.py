@@ -5,20 +5,23 @@ Usage:
   python -m hilcodec_tpu_torch.serve -c CONFIG
       [--params DEPLOY_NPZ | --ckpt CKPT] [--slots S]
       [--mode roundtrip|encode|decode] [-n N_QUANTIZERS]
-      [--host H] [--port P] [--gather-ms MS] [--device DEV]
+      [--host H] [--port P] [--gather-ms MS] [--mesh] [--device DEV]
 
 `--params` loads a `{name}_deploy.npz` (folded params + codebooks) written
 by `python -m hilcodec_tpu_torch.export` or the JAX package's `export.py`;
 `--ckpt` loads a train checkpoint (`{epoch:05d}.ckpt.npz` of either
 package) through the trainer's initial state and folds it. Without either
 the server runs seeded random weights and N(0, 1) codebooks, for latency
-and throughput only.
+and throughput only. `--mesh` shards the slots over every visible card
+(`SlotEngine(devices=...)`; the slots must divide evenly), as serve.py's
+`--mesh` does over the JAX devices.
 """
 
 import argparse
 import asyncio
 
 from ..models.registry import build_codec_model
+from ..parallel.dist import mesh_devices
 from ..utils.checkpoint import load_codec
 from ..utils.hparams import load_config
 from ..utils.params import load_deploy_npz
@@ -59,6 +62,8 @@ def main(argv=None):
     p.add_argument("--gather-ms", type=float, default=0.0,
                    help="micro-batch window: wait this many ms after the "
                         "first pending frame so more slots join each tick")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the slots over every visible card")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; fails without it)")
     ns = p.parse_args(argv)
@@ -66,11 +71,12 @@ def main(argv=None):
     hps = load_config(ns.config)
     model, params, vq_state = serving_weights(hps, ns.params, ns.ckpt,
                                               ns.device)
+    devices = mesh_devices(model.device) if ns.mesh else [model.device]
     print(f"building {ns.slots}-slot engine (mode={ns.mode}) on "
-          f"{model.device}...", flush=True)
+          f"{', '.join(map(str, devices))}...", flush=True)
     engine = SlotEngine(model, params, vq_state, slots=ns.slots,
                         n=ns.num_quantizers, mode=ns.mode, fold=False,
-                        device=model.device)
+                        devices=devices)
     dt = engine.warmup()
     print(f"warmup done in {dt:.1f}s", flush=True)
     asyncio.run(serve_forever(engine, hps.data.sampling_rate,

@@ -28,6 +28,14 @@ default, as the JAX engine's) is the caches' dtype; any other dtype also
 casts every leaf of the folded params (`cast_streaming_params`) and the
 uploaded PCM, so the frame step runs in it; the latents still reach the
 quantizer in f32.
+
+`devices` places the engine: one device, or several to shard the slots
+over (the JAX engine's `mesh=`; `parallel/dist.place_shards`). Each
+device holds its own copy of the params and the VQ state and the caches
+of its slot range, each cache split on its own batch axis. Streams are
+independent, so the shards share nothing: a tick uploads each shard's
+rows, launches every shard's frame step from this thread, then fetches
+their outputs. The default is one shard on CUDA.
 """
 
 from __future__ import annotations
@@ -36,14 +44,14 @@ import collections
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resolve_device, set_f32_parity_mode
 from ..models.codec import cast_streaming_params
-from ..models.hilcodec import params_to
+from ..parallel.dist import place_shards
 
 
 @dataclass
@@ -76,23 +84,97 @@ def _select_rows(dst: List[torch.Tensor], src: List[torch.Tensor],
         torch.where(mask.reshape(shape), s, d, out=d)
 
 
+class _Shard:
+    """One device's part of the engine: its copy of the params and the VQ
+    state, and the caches of its slot range `rows`."""
+
+    def __init__(self, model, params, vq_state, rows: range, mode: str,
+                 n: Optional[int], dtype):
+        self.model, self.device, self.rows = model, model.device, rows
+        self.mode, self.n, self.dtype = mode, n, dtype
+        self.params, self.vq_state = params, vq_state
+        self.need_enc = mode in ("roundtrip", "encode")
+        self.need_dec = mode in ("roundtrip", "decode")
+        self.axes_enc, self.axes_dec = model.cache_axes()
+        self.alloc()
+
+    def alloc(self) -> None:
+        ce, cd = self.model.init_cache(len(self.rows), self.dtype,
+                                       self.device)
+        ce1, cd1 = self.model.init_cache(1, self.dtype, self.device)
+        self.cache_enc = ce if self.need_enc else []
+        self.cache_dec = cd if self.need_dec else []
+        # per-slot init rows: a reset is a masked select against them
+        self.init_enc = ce1 if self.need_enc else []
+        self.init_dec = cd1 if self.need_dec else []
+
+    def upload(self, batch: "_Batch"):
+        """This shard's rows of the tick's frames and masks, on its
+        device."""
+        r = slice(self.rows.start, self.rows.stop)
+        x = batch.x[:, r] if self.mode == "decode" else batch.x[r]
+        reset = batch.reset_mask[r]
+        return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+                torch.from_numpy(batch.active_mask[r]).to(self.device),
+                torch.from_numpy(reset).to(self.device), bool(reset.any()))
+
+    @torch.no_grad()
+    def step(self, x: torch.Tensor, active_m: torch.Tensor,
+             reset_m: torch.Tensor, any_reset: bool) -> torch.Tensor:
+        model, n = self.model, self.n
+        params, vq_state = self.params, self.vq_state
+        if any_reset:
+            _select_rows(self.cache_enc,
+                         [i.expand_as(c) for i, c in
+                          zip(self.init_enc, self.cache_enc)], reset_m,
+                         self.axes_enc)
+            _select_rows(self.cache_dec,
+                         [i.expand_as(c) for i, c in
+                          zip(self.init_dec, self.cache_dec)], reset_m,
+                         self.axes_dec)
+        if self.mode == "roundtrip":
+            tok, wav, ce, cd = model.encode_decode_stream(
+                params, vq_state, _dec16(x).to(self.dtype),
+                list(self.cache_enc), list(self.cache_dec), n=n)
+            _select_rows(self.cache_enc, ce, active_m, self.axes_enc)
+            _select_rows(self.cache_dec, cd, active_m, self.axes_dec)
+            # tokens ride as extra int16 columns after the hop PCM samples,
+            # so the host fetch is one transfer: [S, 1, hop + n_q]
+            return torch.cat([_enc16(wav),
+                              tok.permute(1, 2, 0).to(torch.int16)], dim=-1)
+        if self.mode == "encode":
+            tok, ce = model.encode_stream(params, vq_state,
+                                          _dec16(x).to(self.dtype),
+                                          list(self.cache_enc), n=n)
+            _select_rows(self.cache_enc, ce, active_m, self.axes_enc)
+            return tok.to(torch.int16)                    # [n_q, S, 1]
+        wav, cd = model.decode_stream(params, vq_state, x.long(),
+                                      list(self.cache_dec))
+        _select_rows(self.cache_dec, cd, active_m, self.axes_dec)
+        return _enc16(wav)                                # [S, 1, hop]
+
+
 class SlotEngine:
     """S-slot streaming codec engine around one frame step.
 
     mode: "roundtrip" (PCM in -> tokens + PCM out), "encode" (PCM in ->
     tokens out), "decode" (tokens in -> PCM out). `n` pins the quantizer
     count (bandwidth); None = the model's full stack. `dtype`: the frame
-    step's dtype (caches, params and PCM; see the module note).
+    step's dtype (caches, params and PCM; see the module note). `devices`:
+    the devices the slots are split over, evenly (default: CUDA alone;
+    see the module note).
     """
 
     def __init__(self, model, params, vq_state, *, slots: int = 8,
                  n: Optional[int] = None, mode: str = "roundtrip",
                  fold: bool = True, dtype=torch.float32,
-                 max_queue: int = 1024, device=None):
+                 max_queue: int = 1024,
+                 devices: Optional[Sequence] = None):
         if mode not in ("roundtrip", "encode", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        devs = ([resolve_device(None)] if devices is None
+                else [torch.device(d) for d in devices])
+        if any(d.type == "cuda" for d in devs):
             set_f32_parity_mode()
         self.model = model
         self.mode = mode
@@ -106,17 +188,9 @@ class SlotEngine:
         if dtype != torch.float32:
             params = cast_streaming_params(params, dtype, kernels_only=False)
         self.dtype = dtype
-        self._params = params_to(params, self.device)
-        self._vq_state = {k: v.to(self.device) for k, v in vq_state.items()}
-
-        self._need_enc = mode in ("roundtrip", "encode")
-        self._need_dec = mode in ("roundtrip", "decode")
-        self._cache_enc: List[torch.Tensor] = []
-        self._cache_dec: List[torch.Tensor] = []
-        self._init_enc: List[torch.Tensor] = []
-        self._init_dec: List[torch.Tensor] = []
-        self._axes_enc, self._axes_dec = model.cache_axes()
-        self._alloc_caches()
+        self._shards = [_Shard(m, p, v, rows, mode, n, dtype)
+                        for m, p, v, rows in place_shards(
+                            model, params, vq_state, devs, slots)]
 
         # host state, mutated only under _lock (collect/attach/detach);
         # run() touches device caches only, serialized by the tick owner
@@ -129,52 +203,17 @@ class SlotEngine:
                       "tick_s_max": 0.0, "up_s_sum": 0.0,
                       "dispatch_s_sum": 0.0, "fetch_s_sum": 0.0}
 
-    # ---------------------------------------------------------- device side
+    @property
+    def devices(self) -> List[torch.device]:
+        return [sh.device for sh in self._shards]
 
-    def _alloc_caches(self) -> None:
-        ce, cd = self.model.init_cache(self.slots, self.dtype, self.device)
-        ce1, cd1 = self.model.init_cache(1, self.dtype, self.device)
-        self._cache_enc = ce if self._need_enc else []
-        self._cache_dec = cd if self._need_dec else []
-        # per-slot init rows: a reset is a masked select against them
-        self._init_enc = ce1 if self._need_enc else []
-        self._init_dec = cd1 if self._need_dec else []
+    @property
+    def _cache_enc(self) -> List[torch.Tensor]:
+        return [c for sh in self._shards for c in sh.cache_enc]
 
-    @torch.no_grad()
-    def _step(self, x: torch.Tensor, active_m: torch.Tensor,
-              reset_m: torch.Tensor, any_reset: bool) -> torch.Tensor:
-        model, n = self.model, self.n
-        params, vq_state = self._params, self._vq_state
-        if any_reset:
-            _select_rows(self._cache_enc,
-                         [i.expand_as(c) for i, c in
-                          zip(self._init_enc, self._cache_enc)], reset_m,
-                         self._axes_enc)
-            _select_rows(self._cache_dec,
-                         [i.expand_as(c) for i, c in
-                          zip(self._init_dec, self._cache_dec)], reset_m,
-                         self._axes_dec)
-        if self.mode == "roundtrip":
-            tok, wav, ce, cd = model.encode_decode_stream(
-                params, vq_state, _dec16(x).to(self.dtype),
-                list(self._cache_enc),
-                list(self._cache_dec), n=n)
-            _select_rows(self._cache_enc, ce, active_m, self._axes_enc)
-            _select_rows(self._cache_dec, cd, active_m, self._axes_dec)
-            # tokens ride as extra int16 columns after the hop PCM samples,
-            # so the host fetch is one transfer: [S, 1, hop + n_q]
-            return torch.cat([_enc16(wav),
-                              tok.permute(1, 2, 0).to(torch.int16)], dim=-1)
-        if self.mode == "encode":
-            tok, ce = model.encode_stream(params, vq_state,
-                                          _dec16(x).to(self.dtype),
-                                          list(self._cache_enc), n=n)
-            _select_rows(self._cache_enc, ce, active_m, self._axes_enc)
-            return tok.to(torch.int16)                    # [n_q, S, 1]
-        wav, cd = model.decode_stream(params, vq_state, x.long(),
-                                      list(self._cache_dec))
-        _select_rows(self._cache_dec, cd, active_m, self._axes_dec)
-        return _enc16(wav)                                # [S, 1, hop]
+    @property
+    def _cache_dec(self) -> List[torch.Tensor]:
+        return [c for sh in self._shards for c in sh.cache_dec]
 
     # ------------------------------------------------------------ host side
 
@@ -254,14 +293,14 @@ class SlotEngine:
         """Execute one tick; returns {slot: {"tokens":..., "pcm":..., "seq":}}.
         Must not run concurrently with itself (one tick owner)."""
         t0 = time.perf_counter()
-        dev = self.device
-        x = torch.from_numpy(batch.x).to(dev)
-        am = torch.from_numpy(batch.active_mask).to(dev)
-        rm = torch.from_numpy(batch.reset_mask).to(dev)
+        inputs = [sh.upload(batch) for sh in self._shards]
         t_up = time.perf_counter()
-        y = self._step(x, am, rm, bool(batch.reset_mask.any()))
+        # every shard's step is launched before any output is fetched
+        ys = [sh.step(*inp) for sh, inp in zip(self._shards, inputs)]
         t_disp = time.perf_counter()
-        y = y.cpu().numpy()
+        ys = [y.cpu().numpy() for y in ys]
+        y = ys[0] if len(ys) == 1 else np.concatenate(
+            ys, axis=1 if self.mode == "encode" else 0)
         out: Dict[int, dict] = {}
         for s in batch.active:
             if self.mode == "roundtrip":
@@ -303,7 +342,8 @@ class SlotEngine:
         """Rebuild the device caches after a failed step (which may have
         left them half updated) and mark every attached slot for a reset,
         so the engine keeps serving: streams restart, the process lives."""
-        self._alloc_caches()
+        for sh in self._shards:
+            sh.alloc()
         with self._lock:
             # queued host-side frames stay valid and are still answered
             for slot in self._queues:

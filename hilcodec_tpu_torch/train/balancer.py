@@ -19,6 +19,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ..parallel import dist as D
+
 BalancerState = Dict[str, torch.Tensor]
 
 
@@ -45,14 +47,16 @@ class Balancer:
         return {"ema_norms": torch.zeros(len(self.weights), device=device),
                 "ema_fix": torch.zeros((), device=device)}
 
-    def combine(self, grads: Dict[str, torch.Tensor], state: BalancerState
-                ) -> Tuple[torch.Tensor, BalancerState, torch.Tensor,
-                           Dict[str, torch.Tensor]]:
+    def combine(self, grads: Dict[str, torch.Tensor], state: BalancerState,
+                group=None) -> Tuple[torch.Tensor, BalancerState,
+                                     torch.Tensor, Dict[str, torch.Tensor]]:
         """grads: per-loss gradient with respect to wav_g (each [B, 1, T]).
 
         Returns (combined gradient, new_state, finite flag, debiased EMA
         norms by `ema_norm/{key}`). On non-finite norms the state is kept
-        and the combined gradient is zero."""
+        and the combined gradient is zero. With a process group the norms
+        stay each rank's own and the updated EMA is meaned over the ranks
+        (JAX's pmean of it)."""
         norms = []
         for key in self.keys:
             g = grads[key].float()
@@ -63,7 +67,7 @@ class Balancer:
                 norms.append(torch.sqrt(torch.sum(torch.square(g))))
         norms = torch.stack(norms)
         d = self.ema_decay
-        ema = d * state["ema_norms"] + (1.0 - d) * norms
+        ema = D.mean(d * state["ema_norms"] + (1.0 - d) * norms, group)
         ema_fix = state["ema_fix"] * d + (1.0 - d)
 
         finite = torch.all(torch.isfinite(ema))

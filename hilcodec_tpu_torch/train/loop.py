@@ -1,4 +1,4 @@
-"""The training loop (`hilcodec_tpu/train/loop.py`), one device.
+"""The training loop (`hilcodec_tpu/train/loop.py`).
 
 `build_trainer(hps, device)` builds the GAN trainer of a config: one
 balancer trainer for HILCodec and EnCodec (and the Avocodo generator under
@@ -17,7 +17,17 @@ the JAX package's `.ckpt.npz` layout with resume from the newest.
 Summaries go to TensorBoard under `{run_dir}/train` and `{run_dir}/valid`.
 Where `tensorboard` (every summary) or `matplotlib` (the images) is not
 installed, the loop names in one line at start what it will not write,
-and trains on. Multi-process training is not ported yet.
+and trains on.
+
+Data parallelism: under an initialized process group (`python -m
+torch.distributed.run`, `parallel/dist.init_from_env`) each process
+trains on its own card with the group in its trainer. The train and valid
+loaders are sharded by rank, the first batch is gathered over the ranks
+for the k-means init (every rank computes the same codebooks), the valid
+sums and the pesq means are reduced over the ranks, summaries, the infer
+epoch and checkpoints come from rank 0 only, and every epoch ends with a
+check that each rank holds rank 0's discriminator params. Every rank
+resumes from the same newest checkpoint.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from ..ops import conv as C
 from ..ops import mel as M
 from ..ops import stft as ST
 from ..ops.rvq import RVQDraws
+from ..parallel import dist as D
 from ..utils import checkpoint as ckpt
 from ..utils import summarize as S
 from .balancer import Balancer, SimpleBalancer
@@ -106,7 +117,7 @@ def _compute_dtype_from_config(hp) -> torch.dtype:
     raise ValueError(f"unknown compute_dtype {name!r}")
 
 
-def build_avocodo_trainer(hps, device=None) -> AvocodoTrainer:
+def build_avocodo_trainer(hps, device=None, group=None) -> AvocodoTrainer:
     """The Avocodo trainer of a `model: avocodo` config: LSGAN and plain
     feature matching, the weighted-sum balancer, D before G, PQMF
     multi-scale targets, and the single-resolution HiFi-GAN mel loss at
@@ -133,12 +144,13 @@ def build_avocodo_trainer(hps, device=None) -> AvocodoTrainer:
                      for k, v in _plain(hps.pqmf_config).items()},
         use_lsgan=hp.get("use_lsgan", True),
         use_normalized_fm=hp.get("use_normalized_fm_loss", False),
-        clipper=clipper)
+        clipper=clipper, group=group)
 
 
-def build_trainer(hps, device=None):
+def build_trainer(hps, device=None, group=None):
     """The trainer of a config on `device` (CUDA when None, which must
-    then be available): the balancer GAN trainer for HILCodec and EnCodec
+    then be available), data-parallel over the process `group` when one
+    is given: the balancer GAN trainer for HILCodec and EnCodec
     and for Avocodo under `train.trainer: hilcodec` (its generator with
     the full-rate head only), Avocodo's own trainer otherwise; AudioDec
     is deploy-only and raises the JAX loop's ValueError.
@@ -180,7 +192,7 @@ def build_trainer(hps, device=None):
                 "the Avocodo trainer has no compute_dtype or remat (the "
                 "reference's runs f32 without rematerialization); set "
                 "train.trainer: hilcodec or drop the option")
-        return build_avocodo_trainer(hps, device)
+        return build_avocodo_trainer(hps, device, group)
     if name == "avocodo":
         mk = _plain(hps.model_kwargs)
         model = CodecModel(AvocodoFullRate(AvocodoModel.from_config(mk)),
@@ -202,7 +214,8 @@ def build_trainer(hps, device=None):
         lookahead=hp.get("lookahead", 0),
         disc_update_ratio=tuple(hp.get("disc_update_ratio", None)
                                 or (1, 1)),
-        clipper=clipper, compute_dtype=compute_dtype, remat=remat)
+        clipper=clipper, compute_dtype=compute_dtype, remat=remat,
+        group=group)
 
 
 def step_generator(seed: int, iteration: int) -> torch.Generator:
@@ -219,16 +232,21 @@ class TrainLoop:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_parity_mode()
-        self.trainer = build_trainer(hps, self.device)
+        # the default process group when one is initialized: one process
+        # per card, each on its shard of the data
+        self.group = D.default_group()
+        self.n_proc, self.proc = D.world(), D.rank()
+        self.trainer = build_trainer(hps, self.device, self.group)
         self.seed = hps.train.get("seed", 1)
         self.epoch = 0
         self.iteration = 0          # host copy of state.iteration
         self.state: Optional[TrainState] = None
         self.train_ds, self.train_loader = get_dataset_dataloader(
-            hps, "train", ["wav"])
+            hps, "train", ["wav"], num_shards=self.n_proc, shard=self.proc)
         try:
             self.valid_ds, self.valid_loader = get_dataset_dataloader(
-                hps, "valid", ["wav"])
+                hps, "valid", ["wav"], num_shards=self.n_proc,
+                shard=self.proc)
         except (FileNotFoundError, KeyError, AttributeError):
             self.valid_ds = self.valid_loader = None
         # what an epoch cannot do for want of data, named at start
@@ -238,7 +256,8 @@ class TrainLoop:
         self.metrics = Metrics(
             pesq.get("metrics_to_calculate", {}) or {},
             sampling_rate=hps.data.sampling_rate,
-            num_workers=pesq.get("num_workers_executor", 4))
+            num_workers=pesq.get("num_workers_executor", 4),
+            world_size=self.n_proc, rank=self.proc)
         self.pesq_loader = (self._eval_loader("pesq", ["wav"])
                             if self.metrics.enabled else None)
         self.plot_param_and_grad = hps.train.get("plot_param_and_grad",
@@ -252,6 +271,11 @@ class TrainLoop:
             else None
         self.scheduler_metric = hps.train.get("scheduler_metric",
                                               "loss/freq")
+
+    def _say(self, line: str) -> None:
+        """Print a line from rank 0."""
+        if self.proc == 0:
+            print(line, flush=True)
 
     def _eval_loader(self, mode: str, keys: List[str]):
         try:
@@ -280,8 +304,8 @@ class TrainLoop:
                 if f"plateau_{k}" in extras:
                     self.plateau_state[k] = type(self.plateau_state[k])(
                         extras[f"plateau_{k}"].item())
-        print(f"resumed from {path} (epoch {self.epoch}, iteration "
-              f"{self.iteration})")
+        self._say(f"resumed from {path} (epoch {self.epoch}, iteration "
+                  f"{self.iteration})")
 
     def save(self) -> str:
         extra: Dict[str, Any] = {"epoch": self.epoch}
@@ -293,13 +317,16 @@ class TrainLoop:
                                     extra)
 
     def initialize_vq(self, wav: np.ndarray) -> None:
-        """k-means init of the codebooks on the first batch's latents."""
+        """k-means init of the codebooks on the first batch's latents; the
+        batch gathered over the ranks in rank order, so that every rank
+        computes the same codebooks."""
         vq = self.trainer.model.vq
         if not vq.kmeans_init or bool(self.state.vq_state["initted"]):
             return
+        wav_t = D.all_gather_rows(to_device(wav, self.device), self.group)
         with torch.no_grad():
             z = self.trainer.model.codec.encoder.apply(
-                self.state.params_g["encoder"], to_device(wav, self.device))
+                self.state.params_g["encoder"], wav_t)
         init_idx = vq.kmeans_init_indices(
             torch.Generator().manual_seed(self.seed + 7),
             z.shape[0] * z.shape[-1])
@@ -348,7 +375,7 @@ class TrainLoop:
                 step_generator(self.seed, self.iteration), wav.shape)
             wav_t = to_device(wav, self.device)
             if idx == n_steps and self.plot_param_and_grad \
-                    and hists is not None:
+                    and hists is not None and self.n_proc == 1:
                 self._param_and_grad_hists(hists, wav_t, draws)
             self.state, m = self.trainer.train_step(self.state, wav_t,
                                                     draws)
@@ -359,9 +386,11 @@ class TrainLoop:
                 line = f"Epoch {self.epoch} - Train {idx}/{n_steps}"
                 for k, v in sums.items():
                     line += f"  {k.split('/')[1]}: {v / counts[k]:.3f}"
-                S.progress_line(line + f"  lr: {last['lr']:.2e}")
+                if self.proc == 0:
+                    S.progress_line(line + f"  lr: {last['lr']:.2e}")
         flush()
-        print()
+        if self.proc == 0:
+            print()
         scalars = {k: v / max(counts[k], 1) for k, v in sums.items()}
         scalars["lr"] = last.get("lr", 0.0)
         scalars["epoch_time"] = time.time() - t0
@@ -394,6 +423,12 @@ class TrainLoop:
             n_items += wav.shape[0]
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + v * wav.shape[0]
+        if self.n_proc > 1:
+            # each rank validated its shard: sum [sums..., n] over ranks
+            keys = sorted(sums)
+            tot = D.all_sum_host([sums[k] for k in keys] + [n_items],
+                                 self.group)
+            sums, n_items = dict(zip(keys, tot[:-1].tolist())), tot[-1]
         return {k: v / max(n_items, 1) for k, v in sums.items()}
 
     def _log_mel(self, wav: np.ndarray) -> np.ndarray:
@@ -452,11 +487,19 @@ class TrainLoop:
         for batch in self.pesq_loader:
             wav = self._batch_wav(batch)
             self.metrics.submit(wav[:, 0], self._reconstruct(wav)[:, 0])
-        return self.metrics.retrieve()
+        if self.n_proc == 1:
+            return self.metrics.retrieve()
+        # each rank scored its stride: weighted means over the ranks
+        return self.metrics.retrieve(reduce_fn=lambda mean, n: D.process_mean(
+            mean, n, self.group))
 
     def _open_writers(self) -> None:
-        """The train / valid writers; one line naming what will not be
-        written, where a package or an epoch's data is missing."""
+        """The train / valid writers (rank 0's only); one line naming what
+        will not be written, where a package or an epoch's data is
+        missing."""
+        if self.proc != 0:
+            self.plot_param_and_grad = False
+            return
         absent = S.missing()
         lost = list(self._no_data)
         if "tensorboard" in absent:
@@ -477,7 +520,7 @@ class TrainLoop:
                             "(matplotlib is not installed)")
         self._images = not absent
         if lost:
-            print(f"TrainLoop: not writing {'; '.join(lost)}", flush=True)
+            self._say(f"TrainLoop: not writing {'; '.join(lost)}")
 
     def _close(self) -> None:
         self.metrics.close()
@@ -502,16 +545,19 @@ class TrainLoop:
                     self.train_ds.shuffle(self.seed + self.epoch)
                 hists: Dict[str, np.ndarray] = {}
                 scalars = self.train_epoch(hists)
-                print(f"Epoch {self.epoch} train: " + ", ".join(
-                    f"{k} {v:.4g}" for k, v in scalars.items()), flush=True)
+                self._say(f"Epoch {self.epoch} train: " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in scalars.items()))
                 if self.writer_train is not None:
                     S.summarize(self.writer_train, self.epoch, scalars,
                                 hists=hists or None, echo=False)
+                if self.n_proc > 1:
+                    # every rank must hold rank 0's discriminator
+                    D.assert_replicas_consistent(self.state.params_d,
+                                                 group=self.group)
                 valid = self.valid_epoch()
                 if valid:
-                    print(f"Epoch {self.epoch} valid: " + ", ".join(
-                        f"{k} {v:.4g}" for k, v in valid.items()),
-                        flush=True)
+                    self._say(f"Epoch {self.epoch} valid: " + ", ".join(
+                        f"{k} {v:.4g}" for k, v in valid.items()))
                     if self.writer_valid is not None:
                         S.summarize(self.writer_valid, self.epoch, valid,
                                     echo=False)
@@ -528,8 +574,7 @@ class TrainLoop:
                                 device=self.device))
                 if self.epoch % pesq_interval == 0:
                     for k, v in self.pesq_epoch().items():
-                        print(f"Epoch {self.epoch} metric/{k} {v:.4g}",
-                              flush=True)
+                        self._say(f"Epoch {self.epoch} metric/{k} {v:.4g}")
                         if self.writer_valid is not None:
                             self.writer_valid.add_scalar(f"metric/{k}", v,
                                                          self.epoch)
@@ -543,6 +588,10 @@ class TrainLoop:
                                     sampling_rate=hps.data.sampling_rate,
                                     echo=False)
                 if self.epoch % save_interval == 0:
-                    print(f"saved {self.save()}", flush=True)
+                    if self.proc == 0:
+                        self._say(f"saved {self.save()}")
+                    # no rank moves on (or resumes) before the file is
+                    # written
+                    D.barrier(self.group)
         finally:
             self._close()

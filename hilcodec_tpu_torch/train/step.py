@@ -1,4 +1,4 @@
-"""The GAN train step (`hilcodec_tpu/train/step.py`), on one device.
+"""The GAN train step (`hilcodec_tpu/train/step.py`).
 
 One step: the generator forward keeps its graph; each loss family's
 gradient with respect to the generated waveform comes from
@@ -27,6 +27,15 @@ forward (`disc`), or all (`all`), comma-separable: the same values, the
 forwards run again in the backward (the generator's, and with it the RVQ
 kernel, once more a step).
 
+Data parallelism: with a process `group` (`parallel/dist.py`) each rank
+steps on its own rows of the batch from the same state and the same
+draws, and the step has a collective at each site of the JAX step's
+`shard_map`: the VQ statistics and expiry candidates, the balancer's EMA
+(the per-loss norms stay each rank's), the G and D gradients meaned in
+f32 as one bucket a side before the D finite guard and the clipper (so
+that a NaN on any rank gates every rank), and the float metrics meaned
+after the update (`num_replaces`, identical on every rank, is not).
+
 The JAX package's `fam_mode` "vmap" and "joint" restructure the same
 values for XLA; here every mode is this "separate" plumbing (build_trainer
 accepts the three names). With `disc_update_ratio` r1 > 1 the
@@ -48,6 +57,7 @@ from ..models.codec import CodecModel
 from ..models.discriminators import Discriminators
 from ..ops import reparam as R
 from ..ops.rvq import RVQDraws
+from ..parallel import dist as D
 from ..utils.params import flatten, tree_map, unflatten
 from .balancer import Balancer
 
@@ -102,6 +112,7 @@ class Trainer:
     clipper: Optional[Any] = None
     compute_dtype: torch.dtype = torch.float32
     remat: str = "none"
+    group: Optional[Any] = None     # data-parallel process group
 
     @property
     def device(self) -> torch.device:
@@ -173,7 +184,7 @@ class Trainer:
             wav_g, new_vq, loss_vq, num_replaces = self._run(
                 "gen", lambda: self.model.forward(
                     cast(params_g), state.vq_state, cast(wav_r), draws,
-                    training=True))
+                    training=True, group=self.group))
             wav_r_in = wav_r[:, :, :-la] if la > 0 else wav_r
             w = (wav_g[:, :, la:] if la > 0 else wav_g).detach()
             w.requires_grad_(True)
@@ -206,7 +217,7 @@ class Trainer:
             del fmaps_r, params_d_c
 
             out_grad, new_bal, finite, ema_logs = self.balancer.combine(
-                grads, state.balancer)
+                grads, state.balancer, group=self.group)
             if la > 0:
                 out_grad = torch.nn.functional.pad(out_grad, (0, la))
             outs, grad_outs = [wav_g], [out_grad.to(wav_g.dtype)]
@@ -217,8 +228,10 @@ class Trainer:
             g_list = torch.autograd.grad(outs, leaves_g,
                                          grad_outputs=grad_outs,
                                          allow_unused=True)
-            g_grads = unflatten(dict(zip(flatten(state.params_g),
-                                         _zeros_for_none(g_list, leaves_g))))
+            g_grads = unflatten(dict(zip(
+                flatten(state.params_g),
+                D.mean_leaves(_zeros_for_none(g_list, leaves_g),
+                              self.group))))
             wav_sg = w.detach()
             del wav_g, params_g, leaves_g, w, grads
 
@@ -236,17 +249,18 @@ class Trainer:
                 torch.autograd.grad(d_loss, leaves_d, allow_unused=True),
                 leaves_d)
         d_loss = d_loss.detach()
-        d_grads = unflatten(dict(zip(flatten(state.params_d), d_list)))
 
         r0, r1 = self.disc_update_ratio
         if r1 > 1:
             # update D when (iteration + 1) % r1 < r0
             do_d = ((state.iteration + 1) % r1) < r0
             d_loss = torch.where(do_d, d_loss, torch.zeros_like(d_loss))
-            d_grads = tree_map(lambda g: torch.where(do_d, g, 0.0), d_grads)
+            d_list = [torch.where(do_d, g, 0.0) for g in d_list]
         else:
             do_d = torch.ones((), dtype=torch.bool, device=d_loss.device)
-        # a NaN/Inf in d_loss or any D gradient skips the D update
+        d_list = D.mean_leaves(d_list, self.group)
+        d_grads = unflatten(dict(zip(flatten(state.params_d), d_list)))
+        # a NaN/Inf in d_loss or any (meaned) D gradient skips the D update
         d_finite = torch.stack([torch.isfinite(d_loss)]
                                + [torch.isfinite(g).all() for g in d_list])
         do_d = do_d & d_finite.all()
@@ -309,7 +323,7 @@ class Trainer:
         metrics["finite"] = finite.float()
         metrics["num_replaces"] = aux["num_replaces"]
         metrics.update(aux["ema_logs"])
-        return new_state, metrics
+        return new_state, mean_metrics(metrics, self.group)
 
     # -- evaluation -----------------------------------------------------------
     def valid_step(self, state: TrainState,
@@ -326,6 +340,17 @@ class Trainer:
             losses["d"] = self._d_loss_fn(logits_g, logits_r)
             losses["vq"] = loss_vq
         return {f"loss/{k}": v for k, v in losses.items()}
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor], group
+                 ) -> Dict[str, torch.Tensor]:
+    """A step's floating metrics meaned over the group's ranks in one
+    bucket; the integer ones (num_replaces) as they are."""
+    if group is None:
+        return metrics
+    keys = [k for k, v in metrics.items() if v.is_floating_point()]
+    vals = D.mean(torch.stack([metrics[k].float() for k in keys]), group)
+    return dict(metrics, **dict(zip(keys, vals.unbind(0))))
 
 
 def _f32(tree):

@@ -1,5 +1,4 @@
-"""The Avocodo GAN train step (`hilcodec_tpu/train/step_avocodo.py`), on
-one device.
+"""The Avocodo GAN train step (`hilcodec_tpu/train/step_avocodo.py`).
 
 One step: the generator forward once, keeping its graph, giving the
 outputs at three scales; the discriminator's gradients from its LSGAN
@@ -13,6 +12,10 @@ feature-map tensors (`normalize=False`). AdamP updates both sides with
 one scheduler. The JAX step runs the generator forward twice, once for
 the discriminator and once inside the generator's gradient, on the same
 inputs and draws: the same values, computed once here.
+
+With a process `group`, the VQ statistics, both sides' gradients (one
+bucket a side, before the clipper) and the float metrics are meaned over
+the ranks, as in the JAX step's `shard_map`.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ from ..models import losses as Lo
 from ..models.avocodo import AvocodoDiscriminators, pqmf_targets
 from ..models.codec import CodecModel
 from ..ops import rvq as Q
+from ..parallel import dist as D
 from ..utils.params import flatten, tree_map, unflatten
 from .balancer import SimpleBalancer
-from .step import _with_grad
+from .step import _with_grad, mean_metrics
 
 
 class AvocodoTrainState(NamedTuple):
@@ -51,12 +55,12 @@ class AvocodoCodecModel(CodecModel):
 
     def forward_multiscale(self, params, vq_state, wav: torch.Tensor,
                            draws: Optional[Q.RVQDraws] = None,
-                           training: bool = True):
+                           training: bool = True, group=None):
         """wav [B, 1, T] -> (the three scales' outputs, new_vq_state,
         loss_vq, num_replaces)."""
         z = self.codec.encoder.apply(params["encoder"], wav)
         q, vq_state, loss_vq, n_rep, _ = self.vq(z.float(), vq_state, draws,
-                                                 training)
+                                                 training, group)
         ys = self.codec.base.decoder.apply(params["decoder"], q.to(z.dtype))
         return ys, vq_state, loss_vq, n_rep
 
@@ -77,6 +81,7 @@ class AvocodoTrainer:
     use_lsgan: bool = True
     use_normalized_fm: bool = False
     clipper: Optional[Any] = None
+    group: Optional[Any] = None     # data-parallel process group
 
     @property
     def device(self) -> torch.device:
@@ -124,7 +129,8 @@ class AvocodoTrainer:
         with torch.enable_grad():
             params_g, leaves_g = _with_grad(state.params_g)
             ys_g, new_vq, loss_vq, n_rep = self.model.forward_multiscale(
-                params_g, state.vq_state, wav_r, draws, training=True)
+                params_g, state.vq_state, wav_r, draws, training=True,
+                group=self.group)
 
             # the discriminator first, on the detached outputs
             params_d, leaves_d = _with_grad(state.params_d)
@@ -146,9 +152,10 @@ class AvocodoTrainer:
                                          allow_unused=True)
         g_grads = unflatten(dict(zip(
             flatten(state.params_g),
-            [torch.zeros_like(p) if g is None else g
-             for g, p in zip(g_list, leaves_g)])))
-        d_grads = unflatten(dict(zip(flatten(state.params_d), d_list)))
+            D.mean_leaves([torch.zeros_like(p) if g is None else g
+                           for g, p in zip(g_list, leaves_g)], self.group))))
+        d_grads = unflatten(dict(zip(flatten(state.params_d),
+                                     D.mean_leaves(d_list, self.group))))
         if self.clipper is not None:
             g_grads = self.clipper(g_grads)
             d_grads = self.clipper(d_grads)
@@ -193,7 +200,7 @@ class AvocodoTrainer:
         metrics["lr"] = lr_g
         metrics["finite"] = torch.ones((), device=aux["d_loss"].device)
         metrics["num_replaces"] = aux["num_replaces"]
-        return new_state, metrics
+        return new_state, mean_metrics(metrics, self.group)
 
     # -- evaluation ---------------------------------------------------------------
     def valid_step(self, state: AvocodoTrainState,

@@ -89,13 +89,15 @@ def update_params(hp: HParams, overrides: Optional[List[str]]) -> HParams:
     return hp
 
 
-def get_hparams(args: Optional[List[str]] = None, base_dir: str = "logs"
+def get_hparams(args: Optional[List[str]] = None, base_dir: str = "logs",
+                write_snapshot: bool = True
                 ) -> Tuple[HParams, argparse.Namespace]:
     """The training CLI: `-n NAME [-c CONFIG] [-p a.b=v ...] [-f]
     [-b BASE_DIR] [--device D]`. The config is copied to
     {base_dir}/{name}/config.yaml (refused if another is there, unless
-    -f); without -c the run's copy is loaded. Returns the HParams with
-    `model_dir` set, and the parsed arguments."""
+    -f; not copied without `write_snapshot`, as on every rank but the
+    first of a data-parallel run); without -c the run's copy is loaded.
+    Returns the HParams with `model_dir` set, and the parsed arguments."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-n", "--name", type=str, required=True,
                         help="run name; the run directory is base_dir/name")
@@ -120,6 +122,7 @@ def get_hparams(args: Optional[List[str]] = None, base_dir: str = "logs"
         hp = load_config(snapshot)
     else:
         hp = load_config(ns.config)
+    if ns.config is not None and write_snapshot:
         os.makedirs(run_dir, exist_ok=True)
         if os.path.abspath(ns.config) != os.path.abspath(snapshot):
             if os.path.exists(snapshot) and not ns.force:

@@ -208,7 +208,7 @@ def test_engine_slots_equal_solo_streams(tiny, rng):
     vq_state = {"embed": t(books)}
     hop = tm.hop_length
     eng = SlotEngine(tm, tp, vq_state, slots=3, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     wavs = {k: _dq16(_q16(rng.standard_normal(hop * 6) * 0.3))
             for k in "abc"}
     got = _run_schedule(eng, {k: _frames(w, hop) for k, w in wavs.items()},

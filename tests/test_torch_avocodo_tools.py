@@ -96,7 +96,7 @@ def test_engine_streams_equal_solo_port_and_jax_streams(rng):
     vq_state = {"embed": torch.from_numpy(books)}
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=3, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     wavs = {k: _dq16(_q16(rng.standard_normal(hop * 6) * 0.3))
             for k in "abc"}
     got = _run_schedule(eng, {k: _frames(w, hop) for k, w in wavs.items()},
@@ -194,7 +194,7 @@ def test_serve_ckpt_equals_params_and_serves(setup):
     np.testing.assert_array_equal(vq_ckpt["embed"].numpy(),
                                   vq_npz["embed"].numpy())
     eng = SlotEngine(model, p_ckpt, vq_ckpt, slots=2, fold=False,
-                     device="cpu")
+                     devices=["cpu"])
     s = eng.attach()
     eng.submit(s, np.zeros(model.hop_length, np.int16))
     out = eng.tick()[s]

@@ -60,7 +60,7 @@ def test_parse_args_rejects(argv, msg):
 
 
 @pytest.mark.parametrize("argv,expect", [
-    (["8", "--mesh", "2"], "ROADMAP.md"),
+    (["8", "--mesh"], bench.Args(streams=8, mesh=True)),
     (["8", "--unroll", "2"], "XLA scan of the JAX drivers"),
     (["8", "--chunks", "2"], "XLA scan's streams"),
     (["8", "--dtype", "bf16w"], bench.Args(streams=8, dtype="bf16w")),
@@ -72,8 +72,9 @@ def test_parse_args_rejects(argv, msg):
     (["8", "--depthwise", "im2col"], "unknown --depthwise"),
 ])
 def test_unported_options_point_at_roadmap(argv, expect):
-    """Slot sharding (--mesh) is not ported yet; --unroll and --chunks are
-    XLA scan knobs with no meaning for an eager frame loop; --dtype and
+    """--mesh parses (stream sharding over the cards); --unroll and
+    --chunks are XLA scan knobs with no meaning for an eager frame loop;
+    --dtype and
     --depthwise take bench.py's values and refuse others (both depthwise
     lowerings are the one convolution, so the parse is the same)."""
     if isinstance(expect, str):

@@ -135,7 +135,7 @@ def test_serve_ckpt_equals_params_and_serves(setup):
     np.testing.assert_array_equal(vq_ckpt["embed"].numpy(),
                                   vq_npz["embed"].numpy())
     eng = SlotEngine(model, p_ckpt, vq_ckpt, slots=2, fold=False,
-                     device="cpu")
+                     devices=["cpu"])
     s = eng.attach()
     eng.submit(s, np.zeros(model.hop_length, np.int16))
     out = eng.tick()[s]

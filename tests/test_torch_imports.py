@@ -51,7 +51,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "'hilcodec_tpu_torch.train_lm', "
         "'hilcodec_tpu_torch.entropy_code', "
         "'hilcodec_tpu_torch.utils.debug', "
-        "'hilcodec_tpu_torch.ops.mdct'} <= set(names)\n"
+        "'hilcodec_tpu_torch.ops.mdct', "
+        "'hilcodec_tpu_torch.parallel.dist', "
+        "'hilcodec_tpu_torch.data.native', "
+        "'hilcodec_tpu_torch.data.pitch_np'} <= set(names)\n"
         "import torch\n"
         "assert torch.ops.hilcodec.rvq_cascade.default is not None\n")
     out = _run(["-c", code])

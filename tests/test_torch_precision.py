@@ -158,7 +158,7 @@ def test_bf16_engine_matches_solo_streams(setup):
     _, tm, _, ft, books, wav = setup
     vq = {"embed": t(books)}
     eng = SlotEngine(tm, ft, vq, slots=4, fold=False, dtype=torch.bfloat16,
-                     device="cpu")
+                     devices=["cpu"])
     assert all(c.dtype == torch.bfloat16
                for c in eng._cache_enc + eng._cache_dec)
     hop = tm.hop_length

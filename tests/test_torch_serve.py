@@ -149,7 +149,7 @@ def test_engine_parity_staggered_streams(tiny, rng):
     model, params, vq_state = tiny
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     wavs = {k: (rng.standard_normal(hop * 6) * 0.3).astype(np.float32)
             for k in "abc"}
     got = _run_schedule(eng, {k: _frames(w, hop) for k, w in wavs.items()},
@@ -203,7 +203,7 @@ def test_skipped_tick_leaves_state_unchanged(tiny, rng):
     model, params, vq_state = tiny
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=2, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     a, b = eng.attach(), eng.attach()
     for _ in range(2):
         eng.submit(a, (rng.standard_normal(hop) * 0.3).astype(np.float32))
@@ -221,7 +221,7 @@ def test_engine_slot_reuse_is_clean(tiny, rng):
     model, params, vq_state = tiny
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=1, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     s = eng.attach()
     for f in _frames((rng.standard_normal(hop * 3) * 0.5
                       ).astype(np.float32), hop):
@@ -251,7 +251,7 @@ def test_engine_encode_and_decode_modes(tiny, rng):
     ref_tok, ref_pcm = _stream_ref(model, params, vq_state, wav)
 
     enc = SlotEngine(model, params, vq_state, slots=2, mode="encode",
-                     device="cpu")
+                     devices=["cpu"])
     s = enc.attach()
     toks = []
     for f in _frames(wav, hop):
@@ -260,7 +260,7 @@ def test_engine_encode_and_decode_modes(tiny, rng):
     np.testing.assert_array_equal(np.stack(toks, axis=1), ref_tok)
 
     dec = SlotEngine(model, params, vq_state, slots=2, mode="decode",
-                     device="cpu")
+                     devices=["cpu"])
     s = dec.attach()
     pcms = []
     for i in range(ref_tok.shape[1]):
@@ -273,7 +273,7 @@ def test_engine_warmup_recover_stats(tiny, rng):
     model, params, vq_state = tiny
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=2, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     assert eng.warmup() >= 0 and eng.stats["ticks"] == 1
     assert not any(c.any() for c in eng._cache_enc + eng._cache_dec)
     s = eng.attach()
@@ -303,7 +303,7 @@ def test_tcp_roundtrip_two_clients(tiny, rng):
     model, params, vq_state = tiny
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=4, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     wavs = [(rng.standard_normal(hop * 6) * 0.3).astype(np.float32)
             for _ in range(2)]
     lenf = struct.Struct("<I")
@@ -353,7 +353,7 @@ def test_encodec_engine_staggered_streams_at_three_slots(encodec, rng):
     model, params, vq_state, jm, jparams = encodec
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=3, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     wavs = {k: _dq16(_q16(rng.standard_normal(hop * 6) * 0.3))
             for k in "abc"}
     got = _run_schedule(eng, {k: _frames(w, hop) for k, w in wavs.items()},
@@ -379,7 +379,7 @@ def test_encodec_engine_lstm_state_rows_and_storage(encodec, rng):
     model, params, vq_state, _, _ = encodec
     hop = model.hop_length
     eng = SlotEngine(model, params, vq_state, slots=2, mode="roundtrip",
-                     device="cpu")
+                     devices=["cpu"])
     enc_axes, dec_axes = model.cache_axes()
     lstm = [c for c, ax in zip(eng._cache_enc + eng._cache_dec,
                                enc_axes + dec_axes) if ax == 1]
