@@ -50,12 +50,13 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      initialized on a seeded batch) at batch 24 x 24000 samples of seeded
      speech-like audio: 1 warm-up and 5 timed steps, step ms p50 / p90
      (CUDA events), audio seconds trained per wall second, peak memory,
-     a torch.profiler window (device busy, top kernels), the step's FLOPs
-     and f32 bound; every loss finite, the params moved, the RVQ kernel
-     launched once a step; (b) one step on the card against the same step
-     on the CPU (batch 2 x 24000 samples, same state, batch and draws) at
-     the bars of tests/test_train_parity.py, AdamP held on the same
-     gradients and the whole step's deltas reported; (c) the training
+     a torch.profiler window (device busy, top kernels; the steps of the
+     other families and modes, timed "as 7(a)" below, take no window), the
+     step's FLOPs and f32 bound; every loss finite, the params moved, the
+     RVQ kernel launched once a step; (b) one step on the card against the
+     same step on the CPU (batch 2 x 24000 samples, same state, batch and
+     draws) at the bars of tests/test_train_parity.py, AdamP held on the
+     same gradients and the whole step's deltas reported; (c) the training
      forward's RVQ-kernel tokens against the plain cascade at M = 1800
      rows, n = 2, 4, 8, and the kernel's time there; (d) `python -m
      hilcodec_tpu_torch.train` on a seeded corpus for one epoch (writes
@@ -181,7 +182,22 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      `serve --mesh` with 8 TCP clients against an engine on the same cards
      in this process; the bench at 128 streams, plain and --megakernel,
      unsharded and --mesh over the same two shards (the launches of every
-     kernel).
+     kernel);
+ 17. the measurement and corpus tools (`hilcodec_tpu_torch/scripts/`), in
+     this process at full width: (a) `streaming_roofline` in f32 at 16
+     streams with --probe (the cost a launch) and at 128 with --shapes
+     (every convolution signature of a frame timed alone), and in bf16w
+     at 128 with --agree, 1 s of audio each, the RVQ kernel once a frame;
+     (b) `bench_train_step f32 24 --breakdown` on
+     configs/hilcodec_speech_synth.yaml (3 reps a part; failing if a part
+     is timed under its analytic floor), and one step of that config
+     counted by `flops_analysis` beside FlopCounterMode, by operator, with
+     FlopCounterMode's convolution rules applied to the analytic rows;
+     (c) `serve --slots 16` on the flagship in a subprocess (started
+     first), `serve_load` with 16 clients x 150 frames paced at real time,
+     then unpaced; (d) `serve_device_floor` at 128 slots x 100 ticks; (e)
+     `bench_dwconv` at batch 24; (f) the ONNX reader on ModelProto bytes
+     built here.
 
 The line before the last is {"kernels": [...]}, one entry per kernel of
 the path; the last line is {"ok": true, "device": {...}}.
@@ -1183,13 +1199,15 @@ def train_bound(trainer, state, wav_t, draws):
 
 def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
                      timed=TRAIN_TIMED, rvq_steps=True, rvq_per_step=1,
-                     flops_of=None):
+                     flops_of=None, profiled=False):
     """(a) The trainer of `config` (the flagship's by default) at `batch`
     (24) x 24000 on the card: k-means init, warm-up steps, `timed` timed
-    steps (CUDA events per step), throughput, peak memory, a
-    torch.profiler window and the FLOP bound. With rvq_steps the RVQ
-    kernel must launch `rvq_per_step` times a step (2 when the generator
-    forward is rematerialized), else never (shape-gain, no VQ).
+    steps (CUDA events per step), throughput, peak memory, with
+    `profiled` a torch.profiler window (phase 7(a)'s flagship step only:
+    the other modes' windows were cut for the run's time), and the FLOP
+    bound. With rvq_steps the RVQ kernel must launch `rvq_per_step` times
+    a step (2 when the generator forward is rematerialized), else never
+    (shape-gain, no VQ).
     `flops_of` (tag, result) reuses another run's FLOP count where the
     step has the same shapes (bf16 against f32), instead of counting."""
     import torch
@@ -1283,27 +1301,31 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
     if len(still_g) > len(first_g) // 2 or len(still_d) > len(first_d) // 2:
         raise AssertionError("the parameters did not move")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    # the device's activity only: the same kernels and device time as
-    # with the host's events too, whose trace is slower to read
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for b in batches[:TRAIN_PROFILED]:
-            step(b)
+    dev_ms = n_kernels = None
+    top = []
+    if profiled:
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.device_time_total for e in dev) / TRAIN_PROFILED / 1e3
-    n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
-    log(f"[{tag}] torch.profiler (device activity) over {TRAIN_PROFILED} "
-        f"step(s) (a window cut from 2 to 1 step for the run's time): "
-        f"{dev_ms:.1f} "
-        f"ms of device kernels and {n_kernels:.0f} kernels a step; device "
-        f"busy {dev_ms / p50 * 100:.0f}% of the p50 step (the window and "
-        f"its trace took {time.perf_counter() - t0:.1f} s)")
-    top = sorted(dev, key=lambda e: -e.device_time_total)[:10]
-    for e in top:
-        log(f"[{tag}]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f} ms "
-            f"x{e.count / TRAIN_PROFILED:.0f}/step  {e.key[:90]}")
+        t0 = time.perf_counter()
+        # the device's activity only: the same kernels and device time as
+        # with the host's events too, whose trace is slower to read
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for b in batches[:TRAIN_PROFILED]:
+                step(b)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.device_time_total for e in dev) / TRAIN_PROFILED / 1e3
+        n_kernels = sum(e.count for e in dev) / TRAIN_PROFILED
+        log(f"[{tag}] torch.profiler (device activity) over "
+            f"{TRAIN_PROFILED} step(s) (a window cut from 2 to 1 step for "
+            f"the run's time): {dev_ms:.1f} ms of device kernels and "
+            f"{n_kernels:.0f} kernels a step; device busy "
+            f"{dev_ms / p50 * 100:.0f}% of the p50 step (the window and "
+            f"its trace took {time.perf_counter() - t0:.1f} s)")
+        top = sorted(dev, key=lambda e: -e.device_time_total)[:10]
+        for e in top:
+            log(f"[{tag}]   {e.device_time_total / TRAIN_PROFILED / 1e3:.2f}"
+                f" ms x{e.count / TRAIN_PROFILED:.0f}/step  {e.key[:90]}")
 
     wav_t = batches[0]
     draws = trainer.sample_draws(step_generator(SEED, 0), wav_t.shape)
@@ -1328,7 +1350,8 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
     return trainer, state, dict(p50=p50, p90=p90, launches=launches,
                                 bound_ms=bound_ms, peak=peak,
                                 audio_s=audio_s / wall,
-                                busy=dev_ms / p50, kernels=n_kernels,
+                                busy=None if dev_ms is None
+                                else dev_ms / p50, kernels=n_kernels,
                                 flops=flops, by_op=by_op,
                                 top=[(e.key[:60], e.device_time_total
                                       / TRAIN_PROFILED / 1e3)
@@ -1746,7 +1769,7 @@ def phase_train(card):
     same directory; returns (a)'s step times and K1's launches on the timed
     steps, and phase 8's launch counts and t = 4 timings."""
     import tempfile
-    trainer, state, res = phase_train_full(card)
+    trainer, state, res = phase_train_full(card, profiled=True)
     phase_train_tokens(trainer, state)
     del trainer, state
     phase_train_parity()
@@ -3133,13 +3156,14 @@ def phase_precision(card, paths, f32):
     torch.cuda.empty_cache()
     log(f"[precision] {card}, batch {TRAIN_BATCH} x {TRAIN_SEGMENT}:")
     for mode, r in rows.items():
-        top = r["top"][0] if r["top"] else ("none", 0.0)
+        prof = ("not profiled" if r["busy"] is None else
+                f"busy {r['busy'] * 100:.0f}%, {r['kernels']:.0f} kernels a "
+                f"step, top kernel {r['top'][0][0]} {r['top'][0][1]:.1f} "
+                f"ms a step")
         log(f"[precision]   {mode}: step p50 / p90 {r['p50']:.1f} / "
             f"{r['p90']:.1f} ms, {r['audio_s']:.1f} audio s/s, peak "
-            f"{r['peak'] / 2**30:.2f} GiB, busy {r['busy'] * 100:.0f}%, "
-            f"{r['kernels']:.0f} kernels a step, bound {r['bound_ms']:.1f} "
-            f"ms, RVQ launches {r['launches']}; top kernel {top[0]} "
-            f"{top[1]:.1f} ms a step")
+            f"{r['peak'] / 2**30:.2f} GiB, bound {r['bound_ms']:.1f} ms, "
+            f"RVQ launches {r['launches']}; {prof}")
     return rows
 
 
@@ -4217,6 +4241,246 @@ def phase_parallel(card, phase7):
         bench=bench[False], bench_mega=bench[True], ticks=ticks))
 
 
+# -------------------------------------------------------------- phase 17
+
+SYNTH_CONFIG = os.path.join(ROOT, "configs", "hilcodec_speech_synth.yaml")
+ROOFLINE_SECONDS = "1"         # 75 frames a run
+TOOL_REPS = 3                  # the train-step bench's timed reps a part
+LOAD_CLIENTS = SERVE_SLOTS
+LOAD_FRAMES = 150              # 2 s of audio a client
+FLOOR_SLOTS, FLOOR_TICKS = 128, 100
+
+
+def _tool(run, argv, tag):
+    """A tool's `run(argv)` in this process, its output logged; returns
+    what it returns."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = run(argv)
+    for ln in buf.getvalue().strip().splitlines():
+        log(f"[{tag}]   {ln}")
+    return out
+
+
+def _shape(text):
+    return tuple(int(v) for v in text.strip("()").split(",") if v.strip())
+
+
+def flop_counter_rules(row):
+    """One analytic convolution row recounted by torch.utils.flop_counter's
+    rules (from the row's shapes): a transposed forward, and the input
+    gradient of a plain convolution, at the transposed product's input (no
+    zero-stuffed positions), and a weight gradient as a dense product (Cin
+    x Cout, not Cin / groups x Cout). If the sums equal FlopCounterMode's,
+    its count differs from the analytic one by these rules alone."""
+    pat = re.compile(r"(?:backward (dx|dw) )?in(\([\d, ]*\)) w(\([\d, ]*\)) "
+                     r"g=(\d+)( T)? (?:->|<-) (\([\d, ]*\))")
+    grad, x, w, _g, tr, y = pat.match(row.desc).groups()
+    x, w, y = _shape(x), _shape(w), _shape(y)
+    sp = int(np.prod(x[2:] if tr else y[2:]))
+    k = int(np.prod(w[2:]))
+    if grad == "dw":                # dense; y is the output gradient
+        return 2 * x[0] * sp * k * x[1] * y[1]
+    return 2 * x[0] * sp * k * w[0] * w[1]
+
+
+def step_count_check(card):
+    """(b) One train step of configs/hilcodec_speech_synth.yaml at batch 24
+    counted analytically (`flops_analysis` on the card's tensors) and by
+    FlopCounterMode, by operator, and the analytic convolution rows
+    recounted by FlopCounterMode's rules, by part."""
+    import torch
+    from hilcodec_tpu_torch.scripts import flops_analysis as fa
+    from hilcodec_tpu_torch.train.loop import build_trainer
+    from hilcodec_tpu_torch.train.step import to_device
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    hps = load_config(SYNTH_CONFIG)
+    trainer = build_trainer(hps, "cuda")
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    wav = to_device(speech_batch(np.random.default_rng(SEED + 170),
+                                 TRAIN_BATCH, TRAIN_SEGMENT), trainer.device)
+    draws = trainer.sample_draws(torch.Generator().manual_seed(1), wav.shape)
+    rows = fa.analyze(trainer.train_step, state, wav, draws)
+    fc, fc_by_op = train_bound(trainer, state, wav, draws)
+    t = fa.totals(rows)
+    # by part: (analytic, FlopCounterMode's rules) FLOPs
+    parts = {}
+    for r in rows:
+        if r.prim == fa.CONV:
+            part = (r.desc.split()[1] if r.desc.startswith("backward")
+                    else "forward")
+            if part == "dw" and r.kind.endswith("grouped"):
+                part = "dw grouped"
+            a = parts.setdefault(part, [0, 0])
+            a[0] += r.flops
+            a[1] += flop_counter_rules(r)
+    recount = {"convolution": parts["forward"][1],
+               "convolution_backward": sum(v[1] for k, v in parts.items()
+                                           if k != "forward")}
+    equal = recount == {k: fc_by_op.get(k, 0) for k in recount}
+    total = t["conv"] + t["dot"]
+    log(f"[step-count] configs/hilcodec_speech_synth.yaml, batch "
+        f"{TRAIN_BATCH}, {draws.n} quantizer stages: analytic "
+        f"{total / 1e12:.3f} TFLOP (conv {t['conv'] / 1e12:.3f}, dot "
+        f"{t['dot'] / 1e12:.4f}); FlopCounterMode {fc / 1e12:.3f} TFLOP "
+        f"({fc / total:.3f}x): "
+        + ", ".join(f"{k} {v / 1e12:.4f}" for k, v in sorted(
+            fc_by_op.items())) + f"; {card}")
+    log("[step-count] by part, analytic / FlopCounterMode's rules (TFLOP): "
+        + ", ".join(f"{k} {a / 1e12:.4f} / {f / 1e12:.4f}"
+                    for k, (a, f) in parts.items())
+        + f"; the rules' sums equal FlopCounterMode's by operator: {equal}")
+    return {"analytic_tflop": total / 1e12, "flop_counter_tflop": fc / 1e12,
+            "by_op": fc_by_op, "parts": parts, "rules_equal": equal}
+
+
+def _pb_varint(n):
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_len(field, payload):
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(payload)) + payload
+
+
+def phase_onnx(tmp):
+    """(f) The ONNX reader on ModelProto bytes built here: per stage a
+    codebook as raw_data beside a smaller float initializer and a MatMul
+    node; `load_reference_codebooks` must give the codebooks back."""
+    from hilcodec_tpu_torch.utils.onnx_reader import (load_reference_codebooks,
+                                                      read_onnx_graph)
+    books = np.random.default_rng(SEED + 171).standard_normal(
+        (8, 1024, 128)).astype(np.float32)
+
+    def tensor(name, arr):
+        dims = _pb_len(1, b"".join(_pb_varint(d) for d in arr.shape))
+        return (dims + _pb_varint(2 << 3) + _pb_varint(1)
+                + _pb_len(8, name.encode()) + _pb_len(9, arr.tobytes()))
+    for i, book in enumerate(books):
+        node = (_pb_len(1, b"x") + _pb_len(1, b"embed_t") + _pb_len(2, b"y")
+                + _pb_len(4, b"MatMul"))
+        graph = (_pb_len(1, node) + _pb_len(2, f"vq{i}".encode())
+                 + _pb_len(5, tensor("bias", book[:2].copy()))
+                 + _pb_len(5, tensor("embed", book)))
+        with open(os.path.join(tmp, f"smoke_vq{i}.onnx"), "wb") as f:
+            f.write(_pb_len(7, graph))
+    got = load_reference_codebooks(tmp, "smoke", 8)
+    g = read_onnx_graph(os.path.join(tmp, "smoke_vq3.onnx"))
+    assert np.array_equal(got, books), "onnx codebooks differ"
+    assert g["graph_name"] == "vq3" and g["nodes"][0]["op_type"] == "MatMul"
+    log(f"[onnx] {len(books)} graphs of {books[0].nbytes / 1e6:.2f} MB "
+        f"read back exact")
+
+
+def phase_scripts(card):
+    """17. The measurement and corpus tools, in this process at full width
+    (the serve CLI in a subprocess, started first so that its start-up
+    overlaps (a)): (a) the streaming roofline, (b) the train-step bench
+    with its breakdown and the step's count beside FlopCounterMode's, (c)
+    serve_load against `serve --slots 16`, (d) the device floor, (e) the
+    depthwise micro-bench, (f) the ONNX reader."""
+    import tempfile
+    import torch
+    from hilcodec_tpu_torch.ops import rvq_kernel
+    from hilcodec_tpu_torch.scripts import (bench_dwconv, bench_train_step,
+                                            serve_device_floor, serve_load,
+                                            streaming_roofline)
+
+    out = {}
+    started = spawn_serve(CONFIG, slots=SERVE_SLOTS)
+    try:
+        # (a) f32 at 16 streams with the cost a launch, at 128 with every
+        # convolution signature timed alone, bf16w at 128 against f32
+        rvq_kernel.reset_launches()
+        roof = {}
+        for label, streams, extra in (
+                ("f32@16", SERVE_SLOTS, ["--probe"]),
+                ("f32@128", PATH_STREAMS, ["--shapes"]),
+                ("bf16w@128", PATH_STREAMS, ["--dtype", "bf16w",
+                                             "--agree"])):
+            rows = _tool(streaming_roofline.run,
+                         [str(streams), "--seconds", ROOFLINE_SECONDS]
+                         + extra, "roofline")
+            r = rows[0]
+            assert r["rvq_kernel_launches_per_frame"] == 1.0, r
+            roof[label] = r
+            log(f"[roofline] {streams} streams {r['dtype']}: "
+                f"{r['measured_us_per_frame']:.1f} us a frame, RTF "
+                f"{r['rtf']}, {r['n_kernels_per_frame']} kernels a frame, "
+                f"floors {r['mxu_floor_us']} us (FLOPs) / "
+                f"{r['hbm_floor_us']} us (HBM), MFU {r['mfu_vs_peak']}; "
+                f"{card}")
+        agree = roof["bf16w@128"]
+        assert agree["token_agreement"] > 0.5, agree
+        out["roofline"] = roof
+        out["roofline_launches"] = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        log(f"[roofline] K1 launches {out['roofline_launches']}; per launch "
+            f"{roof['f32@16']['per_launch_us']} us")
+
+        # (b) the train step and its seven parts; a part timed under its
+        # analytic floor is a fault of the measurement
+        rvq_kernel.reset_launches()
+        line, parts = _tool(
+            lambda argv: bench_train_step.run(argv, reps=TOOL_REPS),
+            ["f32", str(TRAIN_BATCH), "--breakdown",
+             f"--config={SYNTH_CONFIG}"], "train-bench")
+        out["train_bench_launches"] = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+        bad = [k for k, v in parts.items()
+               if isinstance(v, dict) and v["impossible"]]
+        assert not bad, f"breakdown parts under their floor: {bad}"
+        assert line["finite"] == 1.0, line
+        out["train_bench"] = (line, parts)
+        log(f"[train-bench] step {line['ms_per_step']} ms, "
+            f"{line['flops_per_step_g']} GFLOP, MFU {line['mfu_vs_peak']}, "
+            f"floor {line['roofline_floor_ms']} ms ({line['roofline_bound']})"
+            f"; K1 {out['train_bench_launches']} launches; {card}")
+        torch.cuda.empty_cache()
+        out["step_count"] = step_count_check(card)
+        torch.cuda.empty_cache()
+
+        # (c) 16 paced clients, then 16 unpaced, against the serve CLI
+        proc, port, dt = await_serving(started)
+        loads = {}
+        for rate in ("1.0", "0"):
+            argv = ["--port", str(port), "--clients", str(LOAD_CLIENTS),
+                    "--frames", str(LOAD_FRAMES), "--rate", rate]
+            loads[rate] = _tool(lambda a: asyncio.run(serve_load.run(
+                serve_load.parse_args(a))), argv, "serve-load")
+            assert loads[rate]["clients"] == LOAD_CLIENTS, loads[rate]
+        out["serve_load"] = loads
+        log(f"[serve-load] serve --slots {SERVE_SLOTS} up in {dt:.1f} s; "
+            f"paced p50 / p99 {loads['1.0']['p50_ms']} / "
+            f"{loads['1.0']['p99_ms']} ms, {loads['1.0']['deadline_misses']} "
+            f"misses; unpaced {loads['0']['aggregate_x_realtime']}x; {card}")
+    finally:
+        _stop(started[0])
+
+    # (d) the device floor of the 128-slot frame step
+    rvq_kernel.reset_launches()
+    floor = _tool(serve_device_floor.run,
+                  [str(FLOOR_SLOTS), str(FLOOR_TICKS)], "device-floor")
+    out["floor"] = floor
+    out["floor_launches"] = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    assert out["floor_launches"] >= FLOOR_TICKS, out["floor_launches"]
+    torch.cuda.empty_cache()
+
+    # (e) the depthwise forms at the generator's train shapes
+    out["dwconv"] = _tool(bench_dwconv.run, [str(TRAIN_BATCH)], "dwconv")
+    torch.cuda.empty_cache()
+
+    # (f)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_onnx(tmp)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4277,6 +4541,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = phase_parallel(line, train)
     done(16)
+    torch.cuda.empty_cache()
+    scripts = phase_scripts(line)
+    done(17)
 
     # the serving path launches the RVQ kernel at M = SERVE_SLOTS rows and
     # 8 stages (its time here: device time through a CUDA graph); the
@@ -4304,6 +4571,9 @@ def main() -> int:
         "launches_bench_mesh": parallel["shard"]["bench"][rvq_kernel.KERNEL],
         "launches_bench_mesh_megakernel":
             parallel["shard"]["bench_mega"][rvq_kernel.KERNEL],
+        "launches_roofline": scripts["roofline_launches"],
+        "launches_train_bench": scripts["train_bench_launches"],
+        "launches_device_floor": scripts["floor_launches"],
         "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]

@@ -54,7 +54,15 @@ def test_port_and_chip_smoke_import_no_jax():
         "'hilcodec_tpu_torch.ops.mdct', "
         "'hilcodec_tpu_torch.parallel.dist', "
         "'hilcodec_tpu_torch.data.native', "
-        "'hilcodec_tpu_torch.data.pitch_np'} <= set(names)\n"
+        "'hilcodec_tpu_torch.data.pitch_np', "
+        "'hilcodec_tpu_torch.utils.onnx_reader', "
+        "'hilcodec_tpu_torch.scripts.flops_analysis', "
+        "'hilcodec_tpu_torch.scripts.streaming_roofline', "
+        "'hilcodec_tpu_torch.scripts.bench_train_step', "
+        "'hilcodec_tpu_torch.scripts.serve_device_floor', "
+        "'hilcodec_tpu_torch.scripts.serve_load', "
+        "'hilcodec_tpu_torch.scripts.bench_dwconv', "
+        "'hilcodec_tpu_torch.scripts.make_synth_corpus'} <= set(names)\n"
         "import torch\n"
         "assert torch.ops.hilcodec.rvq_cascade.default is not None\n")
     out = _run(["-c", code])
