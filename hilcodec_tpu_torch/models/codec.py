@@ -22,6 +22,9 @@ for it. `cast_streaming_params` is the deployment precision cast of the
 JAX package (`--dtype bf16w` / `bf16` of the bench): the streaming drivers
 take their activation dtype from the caches, and the latents reach the
 quantizer in f32 whatever the dtype, so token identity is decided in f32.
+Every driver opens the spans `codec.encoder_step`, `codec.quantize`,
+`codec.dequantize` and `codec.decoder_step` (`utils/spans.py`) once a
+step, so that a trace puts each step's device work down to its part.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..ops import decoder_kernel, encoder_kernel
 from ..ops import rvq as Q
 from ..ops import rvq_kernel
 from ..ops.shape_gain import ShapeGainVQBridge
+from ..utils.spans import span
 from .hilcodec import HILCodec, params_to
 
 Params = Dict[str, Any]
@@ -201,15 +205,20 @@ class CodecModel:
                n: Optional[int] = None) -> torch.Tensor:
         """wav [B, 1, T] -> tokens [n, B, T/hop] (int32)."""
         books = self._books(vq_state)
-        z = self.codec.encoder.apply(params["encoder"], wav)
-        return rvq_kernel.quantize(z.transpose(1, 2).float(), books, n)
+        with span("codec.encoder_step"):
+            z = self.codec.encoder.apply(params["encoder"], wav)
+        with span("codec.quantize"):
+            return rvq_kernel.quantize(z.transpose(1, 2).float(), books, n)
 
     def decode(self, params: Params, vq_state: Q.VQState,
                tokens: torch.Tensor):
         """tokens [n, B, T'] -> wav [B, 1, T'*hop] (Avocodo: the list of
         its three scales, as its decoder's apply gives them)."""
-        q = Q.dequantize(tokens, self._books(vq_state))
-        return self.codec.decoder.apply(params["decoder"], q.transpose(1, 2))
+        with span("codec.dequantize"):
+            q = Q.dequantize(tokens, self._books(vq_state))
+        with span("codec.decoder_step"):
+            return self.codec.decoder.apply(params["decoder"],
+                                            q.transpose(1, 2))
 
     # -- streaming ----------------------------------------------------------
     def _blocks(self, wav: torch.Tensor, frames_per_step: int
@@ -248,9 +257,11 @@ class CodecModel:
             cache, step = mk.cache_to_time_major(cache), mk.step
         toks = []
         for x in self._blocks(wav, frames_per_step):
-            z, cache = step(params["encoder"], cache, x)
-            toks.append(rvq_kernel.quantize(z.transpose(1, 2).float(), books,
-                                            n))
+            with span("codec.encoder_step"):
+                z, cache = step(params["encoder"], cache, x)
+            with span("codec.quantize"):
+                toks.append(rvq_kernel.quantize(z.transpose(1, 2).float(),
+                                                books, n))
         if megakernel:
             cache = mk.cache_from_time_major(cache)
         return torch.cat(toks, dim=-1), cache
@@ -279,8 +290,10 @@ class CodecModel:
             cache, step = mk.cache_to_time_major(cache), mk.step
         outs = []
         for t in range(0, L, f):
-            q = Q.dequantize(tokens[:, :, t:t + f], books).to(dtype)
-            y, cache = step(params["decoder"], cache, q.transpose(1, 2))
+            with span("codec.dequantize"):
+                q = Q.dequantize(tokens[:, :, t:t + f], books).to(dtype)
+            with span("codec.decoder_step"):
+                y, cache = step(params["decoder"], cache, q.transpose(1, 2))
             outs.append(y)
         if megakernel:
             cache = mk.cache_from_time_major(cache)
@@ -301,13 +314,18 @@ class CodecModel:
         dtype = cache_dec[0].dtype if cache_dec else torch.float32
         toks, outs = [], []
         for x in self._blocks(wav, frames_per_step):
-            z, cache_enc = self.codec.encoder.step(params["encoder"],
-                                                   cache_enc, x)
-            idx = rvq_kernel.quantize(z.transpose(1, 2).float(), books, n)
-            q = Q.dequantize(idx, books).to(dtype)
-            y, cache_dec = self.codec.decoder.step(params["decoder"],
-                                                   cache_dec,
-                                                   q.transpose(1, 2))
+            with span("codec.encoder_step"):
+                z, cache_enc = self.codec.encoder.step(params["encoder"],
+                                                       cache_enc, x)
+            with span("codec.quantize"):
+                idx = rvq_kernel.quantize(z.transpose(1, 2).float(), books,
+                                          n)
+            with span("codec.dequantize"):
+                q = Q.dequantize(idx, books).to(dtype)
+            with span("codec.decoder_step"):
+                y, cache_dec = self.codec.decoder.step(params["decoder"],
+                                                       cache_dec,
+                                                       q.transpose(1, 2))
             toks.append(idx)
             outs.append(y)
         return (torch.cat(toks, dim=-1), torch.cat(outs, dim=-1),

@@ -9,7 +9,10 @@ reader), is built the same way with g++ (`build_host` / `load_host`).
 Each build writes a temporary file named by its process and renames it
 into place, so concurrent builds of one source never share a file.
 Nothing here runs at import time: the CPU tests import every module, and
-`nvcc` is needed only when a kernel is first launched.
+`nvcc` is needed only when a kernel is first launched. Each library's
+first load in a process is recorded (`load_record`): the seconds spent
+building it or finding it built, the seconds in `ctypes.CDLL`, and
+whether it was compiled.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -32,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_record: Dict[str, Dict[str, Any]] = {}
 
 
 def nvcc() -> str:
@@ -104,9 +108,24 @@ def _load(name: str, compile_fn) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            path, _, _ = compile_fn(name)
+            t0 = time.perf_counter()
+            path, build_s, _ = compile_fn(name)
+            t1 = time.perf_counter()
             lib = _loaded[name] = ctypes.CDLL(str(path))
+            _record[name] = {"compile_s": t1 - t0,
+                             "load_s": time.perf_counter() - t1,
+                             "compiled": build_s > 0.0}
         return lib
+
+
+def load_record() -> Dict[str, Dict[str, Any]]:
+    """{library: {"compile_s", "load_s", "compiled"}} of every library
+    this process has loaded: `compile_s` the seconds in the build step
+    (a hash and a file check when the library is built already),
+    `load_s` the seconds in `ctypes.CDLL`, `compiled` whether the build
+    step ran the compiler."""
+    with _lock:
+        return {k: dict(v) for k, v in _record.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

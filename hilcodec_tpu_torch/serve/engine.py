@@ -36,6 +36,11 @@ of its slot range, each cache split on its own batch axis. Streams are
 independent, so the shards share nothing: a tick uploads each shard's
 rows, launches every shard's frame step from this thread, then fetches
 their outputs. The default is one shard on CUDA.
+
+A tick opens the spans `slot_engine.collect`, `slot_engine.upload`,
+`slot_engine.step` and `slot_engine.fetch` (`utils/spans.py`, present
+only under torch.profiler); `stats` keeps running sums of the same
+phases' host time and of each frame's wait from `submit` to `collect`.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 from .. import resolve_device, set_f32_parity_mode
 from ..models.codec import cast_streaming_params
 from ..parallel.dist import place_shards
+from ..utils.spans import span
 
 
 @dataclass
@@ -199,9 +205,12 @@ class SlotEngine:
         self._queues: Dict[int, collections.deque] = {}
         self._to_reset: set = set()
         self._seq: Dict[int, int] = {}
+        # running sums of the host's time: run()'s three phases, collect()
+        # and, per frame collected, its wait in its slot's queue
         self.stats = {"ticks": 0, "frames": 0, "tick_s_sum": 0.0,
                       "tick_s_max": 0.0, "up_s_sum": 0.0,
-                      "dispatch_s_sum": 0.0, "fetch_s_sum": 0.0}
+                      "dispatch_s_sum": 0.0, "fetch_s_sum": 0.0,
+                      "collect_s_sum": 0.0, "wait_s_sum": 0.0}
 
     @property
     def devices(self) -> List[torch.device]:
@@ -253,7 +262,7 @@ class SlotEngine:
                 raise KeyError(f"slot {slot} not attached")
             if len(q) >= self.max_queue:
                 raise RuntimeError(f"slot {slot} queue over {self.max_queue}")
-            q.append(frame)
+            q.append((frame, time.perf_counter()))
 
     def pending(self) -> bool:
         with self._lock:
@@ -261,14 +270,22 @@ class SlotEngine:
 
     def collect(self) -> Optional[_Batch]:
         """Snapshot <=1 frame per slot + pending resets for one tick."""
+        t0 = time.perf_counter()
+        with span("slot_engine.collect"):
+            batch = self._collect(t0)
+        self.stats["collect_s_sum"] += time.perf_counter() - t0
+        return batch
+
+    def _collect(self, now: float) -> Optional[_Batch]:
         with self._lock:
             if not (any(self._queues.values()) or self._to_reset):
                 return None
-            active, frames = [], {}
+            active, frames, wait = [], {}, 0.0
             for slot, q in self._queues.items():
                 if q:
                     active.append(slot)
-                    frames[slot] = q.popleft()
+                    frames[slot], t_sub = q.popleft()
+                    wait += now - t_sub
             reset_m = np.zeros(self.slots, bool)
             for slot in self._to_reset:
                 reset_m[slot] = True
@@ -276,6 +293,7 @@ class SlotEngine:
             seq = {s: self._seq[s] for s in active}
             for s in active:
                 self._seq[s] += 1
+        self.stats["wait_s_sum"] += wait
         active_m = np.zeros(self.slots, bool)
         active_m[active] = True
         if self.mode == "decode":
@@ -293,23 +311,26 @@ class SlotEngine:
         """Execute one tick; returns {slot: {"tokens":..., "pcm":..., "seq":}}.
         Must not run concurrently with itself (one tick owner)."""
         t0 = time.perf_counter()
-        inputs = [sh.upload(batch) for sh in self._shards]
+        with span("slot_engine.upload"):
+            inputs = [sh.upload(batch) for sh in self._shards]
         t_up = time.perf_counter()
         # every shard's step is launched before any output is fetched
-        ys = [sh.step(*inp) for sh, inp in zip(self._shards, inputs)]
+        with span("slot_engine.step"):
+            ys = [sh.step(*inp) for sh, inp in zip(self._shards, inputs)]
         t_disp = time.perf_counter()
-        ys = [y.cpu().numpy() for y in ys]
-        y = ys[0] if len(ys) == 1 else np.concatenate(
-            ys, axis=1 if self.mode == "encode" else 0)
-        out: Dict[int, dict] = {}
-        for s in batch.active:
-            if self.mode == "roundtrip":
-                out[s] = {"tokens": y[s, 0, self.hop:],
-                          "pcm": y[s, 0, :self.hop], "seq": batch.seq[s]}
-            elif self.mode == "encode":
-                out[s] = {"tokens": y[:, s, 0], "seq": batch.seq[s]}
-            else:
-                out[s] = {"pcm": y[s, 0], "seq": batch.seq[s]}
+        with span("slot_engine.fetch"):
+            ys = [y.cpu().numpy() for y in ys]
+            y = ys[0] if len(ys) == 1 else np.concatenate(
+                ys, axis=1 if self.mode == "encode" else 0)
+            out: Dict[int, dict] = {}
+            for s in batch.active:
+                if self.mode == "roundtrip":
+                    out[s] = {"tokens": y[s, 0, self.hop:],
+                              "pcm": y[s, 0, :self.hop], "seq": batch.seq[s]}
+                elif self.mode == "encode":
+                    out[s] = {"tokens": y[:, s, 0], "seq": batch.seq[s]}
+                else:
+                    out[s] = {"pcm": y[s, 0], "seq": batch.seq[s]}
         t1 = time.perf_counter()
         st = self.stats
         st["ticks"] += 1

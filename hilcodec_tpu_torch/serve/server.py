@@ -159,9 +159,11 @@ class CodecServer:
             n = max(st.get("ticks", 0), 1)
             st["tick_ms_mean"] = round(st.pop("tick_s_sum", 0.0) / n * 1e3, 3)
             st["tick_ms_max"] = round(st.pop("tick_s_max", 0.0) * 1e3, 3)
-            for k in ("up", "dispatch", "fetch"):
+            for k in ("up", "dispatch", "fetch", "collect"):
                 st[f"{k}_ms_mean"] = round(
                     st.pop(f"{k}_s_sum", 0.0) / n * 1e3, 3)
+            st["wait_ms_mean"] = round(st.pop("wait_s_sum", 0.0)
+                                       / max(st.get("frames", 0), 1) * 1e3, 3)
             st["ok"] = True
             writer.write(json.dumps(st).encode() + b"\n")
             await writer.drain()

@@ -59,6 +59,7 @@ from ..ops import reparam as R
 from ..ops.rvq import RVQDraws
 from ..parallel import dist as D
 from ..utils.params import flatten, tree_map, unflatten
+from ..utils.spans import span
 from .balancer import Balancer
 
 
@@ -156,8 +157,9 @@ class Trainer:
         """The step's random draws for a batch of shape [B, 1, T], on the
         model's device: the quantizer's (`RVQDraws`: the dropout depth and
         the expiry candidate rows; `ShapeGainDraws` for shape-gain)."""
-        rows = wav_shape[0] * (wav_shape[-1] // self.model.hop_length)
-        return self.model.vq.sample_draws(gen, rows).to(self.device)
+        with span("train.draws"):
+            rows = wav_shape[0] * (wav_shape[-1] // self.model.hop_length)
+            return self.model.vq.sample_draws(gen, rows).to(self.device)
 
     # -- loss plumbing --------------------------------------------------------
     def _g_loss_fn(self, logits):
@@ -176,102 +178,115 @@ class Trainer:
     def compute_grads(self, state: TrainState, wav_r: torch.Tensor,
                       draws: RVQDraws) -> Dict[str, Any]:
         """Forward, balancer and both backward passes: the (clipped) grads
-        the optimizers take and every auxiliary output."""
-        la = self.lookahead
-        cast = self._cast
+        the optimizers take and every auxiliary output. Its spans
+        (`utils/spans.py`) tile it: every statement lies in one `train.*`
+        part."""
         with torch.enable_grad():
-            params_g, leaves_g = _with_grad(state.params_g)
-            wav_g, new_vq, loss_vq, num_replaces = self._run(
-                "gen", lambda: self.model.forward(
-                    cast(params_g), state.vq_state, cast(wav_r), draws,
-                    training=True, group=self.group))
-            wav_r_in = wav_r[:, :, :-la] if la > 0 else wav_r
-            w = (wav_g[:, :, la:] if la > 0 else wav_g).detach()
-            w.requires_grad_(True)
+            with span("train.generator"):
+                la = self.lookahead
+                cast = self._cast
+                params_g, leaves_g = _with_grad(state.params_g)
+                wav_g, new_vq, loss_vq, num_replaces = self._run(
+                    "gen", lambda: self.model.forward(
+                        cast(params_g), state.vq_state, cast(wav_r), draws,
+                        training=True, group=self.group))
+                wav_r_in = wav_r[:, :, :-la] if la > 0 else wav_r
+                w = (wav_g[:, :, la:] if la > 0 else wav_g).detach()
+                w.requires_grad_(True)
 
-            losses: Dict[str, torch.Tensor] = {}
-            grads: Dict[str, torch.Tensor] = {}
-            mel = self._run("mel",
-                            lambda w: self.mel_loss(w, wav_r_in)["freq"], w)
-            losses["freq"] = mel.detach()
-            grads["freq"] = torch.autograd.grad(mel, w)[0]
+            with span("train.mel"):
+                losses: Dict[str, torch.Tensor] = {}
+                grads: Dict[str, torch.Tensor] = {}
+                mel = self._run(
+                    "mel", lambda w: self.mel_loss(w, wav_r_in)["freq"], w)
+                losses["freq"] = mel.detach()
+                grads["freq"] = torch.autograd.grad(mel, w)[0]
 
-            params_d_c = cast(state.params_d)
-            with torch.no_grad():
-                _, fmaps_r = self.disc.apply(params_d_c, cast(wav_r_in))
-                fmaps_r = _f32(fmaps_r)
+            with span("train.real_fmaps"):
+                params_d_c = cast(state.params_d)
+                with torch.no_grad():
+                    _, fmaps_r = self.disc.apply(params_d_c, cast(wav_r_in))
+                    fmaps_r = _f32(fmaps_r)
             for name, d in self.disc.discs.items():
-                def fam(w, d=d, name=name):
-                    lg, fg = d.apply(params_d_c[name], cast(w))
-                    g_l = self._g_loss_fn({name: _f32(lg)})[f"{name}_g"]
-                    fm_l = self._fm_loss_fn(
-                        {name: _f32(fg)},
-                        {name: fmaps_r[name]})[f"{name}_fm"]
-                    return g_l, fm_l
-                g_l, fm_l = self._run("disc", fam, w)
-                losses[f"{name}_g"] = g_l.detach()
-                losses[f"{name}_fm"] = fm_l.detach()
-                grads[f"{name}_g"] = torch.autograd.grad(
-                    g_l, w, retain_graph=True)[0]
-                grads[f"{name}_fm"] = torch.autograd.grad(fm_l, w)[0]
-            del fmaps_r, params_d_c
+                with span(f"train.family.{name}"):
+                    def fam(w, d=d, name=name):
+                        lg, fg = d.apply(params_d_c[name], cast(w))
+                        g_l = self._g_loss_fn({name: _f32(lg)})[f"{name}_g"]
+                        fm_l = self._fm_loss_fn(
+                            {name: _f32(fg)},
+                            {name: fmaps_r[name]})[f"{name}_fm"]
+                        return g_l, fm_l
+                    g_l, fm_l = self._run("disc", fam, w)
+                    losses[f"{name}_g"] = g_l.detach()
+                    losses[f"{name}_fm"] = fm_l.detach()
+                    grads[f"{name}_g"] = torch.autograd.grad(
+                        g_l, w, retain_graph=True)[0]
+                    grads[f"{name}_fm"] = torch.autograd.grad(fm_l, w)[0]
+            with span("train.balancer"):
+                del fmaps_r, params_d_c
+                out_grad, new_bal, finite, ema_logs = self.balancer.combine(
+                    grads, state.balancer, group=self.group)
+                if la > 0:
+                    out_grad = torch.nn.functional.pad(out_grad, (0, la))
+            with span("train.generator_backward"):
+                outs, grad_outs = [wav_g], [out_grad.to(wav_g.dtype)]
+                if loss_vq.requires_grad:   # `vq: ''` has a constant zero
+                    outs.append(loss_vq)
+                    grad_outs.append(torch.full(
+                        (), self.balancer.weight_others,
+                        device=wav_g.device))
+                g_list = torch.autograd.grad(outs, leaves_g,
+                                             grad_outputs=grad_outs,
+                                             allow_unused=True)
+                g_grads = unflatten(dict(zip(
+                    flatten(state.params_g),
+                    D.mean_leaves(_zeros_for_none(g_list, leaves_g),
+                                  self.group))))
+                wav_sg = w.detach()
+                del wav_g, params_g, leaves_g, w, grads
 
-            out_grad, new_bal, finite, ema_logs = self.balancer.combine(
-                grads, state.balancer, group=self.group)
-            if la > 0:
-                out_grad = torch.nn.functional.pad(out_grad, (0, la))
-            outs, grad_outs = [wav_g], [out_grad.to(wav_g.dtype)]
-            if loss_vq.requires_grad:       # `vq: ''` has a constant zero
-                outs.append(loss_vq)
-                grad_outs.append(torch.full((), self.balancer.weight_others,
-                                            device=wav_g.device))
-            g_list = torch.autograd.grad(outs, leaves_g,
-                                         grad_outputs=grad_outs,
-                                         allow_unused=True)
-            g_grads = unflatten(dict(zip(
-                flatten(state.params_g),
-                D.mean_leaves(_zeros_for_none(g_list, leaves_g),
-                              self.group))))
-            wav_sg = w.detach()
-            del wav_g, params_g, leaves_g, w, grads
-
+        with span("train.discriminator"):
             # the discriminator's loss on the detached generated waveform;
             # a spectral-norm `u` takes no gradient: zeros, as in JAX
-            params_d, leaves_d = _with_grad(state.params_d)
+            with torch.enable_grad():
+                params_d, leaves_d = _with_grad(state.params_d)
 
-            def d_fn():
-                p_c = cast(params_d)
-                logits_g, _ = self.disc.apply(p_c, cast(wav_sg))
-                logits_r, _ = self.disc.apply(p_c, cast(wav_r_in))
-                return self._d_loss_fn(_f32(logits_g), _f32(logits_r))
-            d_loss = self._run("disc", d_fn)
-            d_list = _zeros_for_none(
-                torch.autograd.grad(d_loss, leaves_d, allow_unused=True),
-                leaves_d)
-        d_loss = d_loss.detach()
+                def d_fn():
+                    p_c = cast(params_d)
+                    logits_g, _ = self.disc.apply(p_c, cast(wav_sg))
+                    logits_r, _ = self.disc.apply(p_c, cast(wav_r_in))
+                    return self._d_loss_fn(_f32(logits_g), _f32(logits_r))
+                d_loss = self._run("disc", d_fn)
+                d_list = _zeros_for_none(
+                    torch.autograd.grad(d_loss, leaves_d, allow_unused=True),
+                    leaves_d)
+            d_loss = d_loss.detach()
 
-        r0, r1 = self.disc_update_ratio
-        if r1 > 1:
-            # update D when (iteration + 1) % r1 < r0
-            do_d = ((state.iteration + 1) % r1) < r0
-            d_loss = torch.where(do_d, d_loss, torch.zeros_like(d_loss))
-            d_list = [torch.where(do_d, g, 0.0) for g in d_list]
-        else:
-            do_d = torch.ones((), dtype=torch.bool, device=d_loss.device)
-        d_list = D.mean_leaves(d_list, self.group)
-        d_grads = unflatten(dict(zip(flatten(state.params_d), d_list)))
-        # a NaN/Inf in d_loss or any (meaned) D gradient skips the D update
-        d_finite = torch.stack([torch.isfinite(d_loss)]
-                               + [torch.isfinite(g).all() for g in d_list])
-        do_d = do_d & d_finite.all()
+            r0, r1 = self.disc_update_ratio
+            if r1 > 1:
+                # update D when (iteration + 1) % r1 < r0
+                do_d = ((state.iteration + 1) % r1) < r0
+                d_loss = torch.where(do_d, d_loss, torch.zeros_like(d_loss))
+                d_list = [torch.where(do_d, g, 0.0) for g in d_list]
+            else:
+                do_d = torch.ones((), dtype=torch.bool, device=d_loss.device)
+            d_list = D.mean_leaves(d_list, self.group)
+            d_grads = unflatten(dict(zip(flatten(state.params_d), d_list)))
+            # a NaN/Inf in d_loss or any (meaned) D gradient skips the D
+            # update
+            d_finite = torch.stack([torch.isfinite(d_loss)]
+                                   + [torch.isfinite(g).all()
+                                      for g in d_list])
+            do_d = do_d & d_finite.all()
 
-        if self.clipper is not None:
-            g_grads = self.clipper(g_grads)
-            d_grads = self.clipper(d_grads)
-        return dict(g_grads=g_grads, d_grads=d_grads, d_loss=d_loss,
-                    do_d=do_d, losses=losses, loss_vq=loss_vq.detach(),
-                    new_vq_state=new_vq, num_replaces=num_replaces,
-                    finite=finite, new_bal=new_bal, ema_logs=ema_logs)
+        with span("train.clip"):
+            if self.clipper is not None:
+                g_grads = self.clipper(g_grads)
+                d_grads = self.clipper(d_grads)
+            return dict(g_grads=g_grads, d_grads=d_grads, d_loss=d_loss,
+                        do_d=do_d, losses=losses, loss_vq=loss_vq.detach(),
+                        new_vq_state=new_vq, num_replaces=num_replaces,
+                        finite=finite, new_bal=new_bal, ema_logs=ema_logs)
 
     # -- the step -------------------------------------------------------------
     def train_step(self, state: TrainState, wav_r: torch.Tensor,
@@ -283,9 +298,10 @@ class Trainer:
 
     def apply_grads(self, state: TrainState, aux: Dict[str, Any]
                     ) -> Tuple[TrainState, Dict[str, Any]]:
-        """The optimizer half of train_step on compute_grads' output."""
-        finite, do_d = aux["finite"], aux["do_d"]
-        with torch.no_grad():
+        """The optimizer half of train_step on compute_grads' output,
+        tiled by its spans as compute_grads is."""
+        with span("train.optim_g"), torch.no_grad():
+            finite, do_d = aux["finite"], aux["do_d"]
             lr_g = self.sched_g(self.lr_g, state.iteration,
                                 state.epoch) * state.lr_scale
             upd_g, new_opt_g = self.optim_g.update(
@@ -295,6 +311,7 @@ class Trainer:
             new_opt_g = tree_map(lambda new, old: torch.where(finite, new,
                                                               old),
                                  new_opt_g, state.opt_g)
+        with span("train.optim_d"), torch.no_grad():
             lr_d = self.sched_d(self.lr_d, state.iteration,
                                 state.epoch) * state.lr_scale
             upd_d, new_opt_d = self.optim_d.update(
@@ -304,26 +321,29 @@ class Trainer:
             new_opt_d = tree_map(lambda new, old: torch.where(do_d, new,
                                                               old),
                                  new_opt_d, state.opt_d)
+        with span("train.spectral_norm"), torch.no_grad():
             params_d = spectral_norm_power_iteration(params_d)
-        # the VQ codebooks advance whatever the balancer decided (their
-        # EMA statistics take no gradient)
-        new_state = TrainState(
-            params_g=params_g, params_d=params_d,
-            vq_state=aux["new_vq_state"], opt_g=new_opt_g, opt_d=new_opt_d,
-            balancer=aux["new_bal"], iteration=state.iteration + 1,
-            epoch=state.epoch, lr_scale=state.lr_scale)
+        with span("train.metrics"):
+            # the VQ codebooks advance whatever the balancer decided
+            # (their EMA statistics take no gradient)
+            new_state = TrainState(
+                params_g=params_g, params_d=params_d,
+                vq_state=aux["new_vq_state"], opt_g=new_opt_g,
+                opt_d=new_opt_d, balancer=aux["new_bal"],
+                iteration=state.iteration + 1, epoch=state.epoch,
+                lr_scale=state.lr_scale)
 
-        metrics = {"loss/" + k: v for k, v in aux["losses"].items()}
-        metrics["loss/vq"] = aux["loss_vq"]
-        # NaN on skipped D steps, so epoch means cover update steps only
-        metrics["loss/d"] = torch.where(do_d, aux["d_loss"],
-                                        torch.full_like(aux["d_loss"],
-                                                        float("nan")))
-        metrics["lr"] = lr_g
-        metrics["finite"] = finite.float()
-        metrics["num_replaces"] = aux["num_replaces"]
-        metrics.update(aux["ema_logs"])
-        return new_state, mean_metrics(metrics, self.group)
+            metrics = {"loss/" + k: v for k, v in aux["losses"].items()}
+            metrics["loss/vq"] = aux["loss_vq"]
+            # NaN on skipped D steps, so epoch means cover update steps only
+            metrics["loss/d"] = torch.where(do_d, aux["d_loss"],
+                                            torch.full_like(aux["d_loss"],
+                                                            float("nan")))
+            metrics["lr"] = lr_g
+            metrics["finite"] = finite.float()
+            metrics["num_replaces"] = aux["num_replaces"]
+            metrics.update(aux["ema_logs"])
+            return new_state, mean_metrics(metrics, self.group)
 
     # -- evaluation -----------------------------------------------------------
     def valid_step(self, state: TrainState,

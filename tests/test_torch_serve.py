@@ -324,24 +324,39 @@ def test_tcp_roundtrip_two_clients(tiny, rng):
         writer.close()
         return np.stack(toks, axis=1), np.concatenate(pcms)
 
+    async def stats(port):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(b'{"mode": "stats"}\n')
+        st = json.loads((await reader.readline()).decode())
+        writer.close()
+        return st
+
     async def go():
         srv = CodecServer(eng, sr=24000, port=0)
         await srv.start()
         try:
-            return await asyncio.wait_for(asyncio.gather(
+            res = await asyncio.wait_for(asyncio.gather(
                 *(client(srv.port, [_q16(f) for f in _frames(w, hop)])
                   for w in wavs)), 60)
+            return res, await asyncio.wait_for(stats(srv.port), 60)
         finally:
             await srv.stop()
 
     rvq_kernel.reset_launches()
-    results = asyncio.run(go())
+    results, st = asyncio.run(go())
     for w, (tok, pcm) in zip(wavs, results):
         ref_tok, ref_pcm = _stream_ref(model, params, vq_state,
                                        _dq16(_q16(w)))
         np.testing.assert_array_equal(tok, ref_tok)
         _assert_pcm(pcm, ref_pcm)
     assert eng.stats["frames"] == 12 and not eng.pending()
+    # the stats hello: the engine's sums as means, per tick and per frame
+    assert st["ok"] and st["frames"] == 12 and st["ticks"] >= 6
+    assert st["collect_ms_mean"] == round(
+        eng.stats["collect_s_sum"] / st["ticks"] * 1e3, 3) > 0.0
+    assert st["wait_ms_mean"] == round(
+        eng.stats["wait_s_sum"] / 12 * 1e3, 3) > 0.0
+    assert not any(k.endswith("_s_sum") for k in st)
     assert rvq_kernel.LAUNCHES[rvq_kernel.KERNEL] == 0
 
 
