@@ -61,7 +61,11 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      rows, n = 2, 4, 8, and the kernel's time there; (d) `python -m
      hilcodec_tpu_torch.train` on a seeded corpus for one epoch (writes
      00001.ckpt.npz), then resumed for a second with the histograms, the
-     infer epoch and SI-SDR at interval 1;
+     infer epoch and SI-SDR at interval 1; (e), after (c), the multi-leaf
+     AdamP kernel (csrc/adamp.cu) against its plain path on (a)'s state
+     and one card backward's gradients, both sides, two steps, commit
+     false, timed beside the plain path and its byte bound; its launches
+     over (a)'s timed steps, 3 a side a step;
   8. tools, on 7(d)'s 00002.ckpt.npz in the same directory: `python -m
      hilcodec_tpu_torch.export --ckpt`; `serve --ckpt` in a subprocess and
      an engine on the exported deploy npz, one 75-frame TCP client each,
@@ -1213,6 +1217,7 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from hilcodec_tpu_torch.ops import adamp_kernel as AK
     from hilcodec_tpu_torch.ops import rvq_kernel
     from hilcodec_tpu_torch.train.loop import step_generator
     from hilcodec_tpu_torch.train.step import metrics_to_host, to_device
@@ -1253,6 +1258,7 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
               for _ in range(timed + 1)]
     metrics, depths = [], []
     rvq_kernel.reset_launches()
+    AK.LAUNCHES[AK.KERNEL] = 0
     t0 = time.perf_counter()
     events[0].record()
     for i, b in enumerate(batches[TRAIN_WARMUP:]):
@@ -1263,6 +1269,7 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    adamp_launches = AK.LAUNCHES[AK.KERNEL]
     step_ms = [events[i].elapsed_time(events[i + 1])
                for i in range(timed)]
     p50, p90 = np.percentile(step_ms, 50), np.percentile(step_ms, 90)
@@ -1274,7 +1281,8 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
         f"{', '.join(f'{x:.1f}' for x in step_ms)}); wall {wall:.3f} s, "
         f"{audio_s / wall:.1f} audio s trained per wall s; peak memory "
         f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
-        f"dropout depths {depths}; rvq_cascade launches {launches} ({card})")
+        f"dropout depths {depths}; rvq_cascade launches {launches}, "
+        f"{AK.KERNEL} launches {adamp_launches} ({card})")
     for k in sorted(k for k in host[0] if k.startswith("loss/")):
         log(f"[{tag}]   {k}: " + ", ".join(f"{h[k]:.4g}" for h in host))
     bad = [(i, k) for i, h in enumerate(host) for k, v in h.items()
@@ -1348,6 +1356,7 @@ def phase_train_full(card, config=CONFIG, tag="train", batch=TRAIN_BATCH,
         f"{peak_flops / 1e12:.0f} TFLOP/s, "
         f"{bound_ms / p50 * 100:.1f}% of the p50 step")
     return trainer, state, dict(p50=p50, p90=p90, launches=launches,
+                                adamp_launches=adamp_launches,
                                 bound_ms=bound_ms, peak=peak,
                                 audio_s=audio_s / wall,
                                 busy=None if dev_ms is None
@@ -1656,6 +1665,161 @@ def phase_train_tokens(trainer, state, depths=(2, 4, 8),
                                      f"at n={n}: {rep}")
 
 
+# the AdamP kernel against its plain path on the same inputs: the worst
+# leaf's update (params after minus before) and moments by relative L2.
+# The two sum the gate's and the projection's reductions in other orders
+# (~1e-6 apart); a wrong projection, gate, decay or bias correction reads
+# 1e-2 or more
+ADAMP_RTOL = 1e-4
+ADAMP_CALLS = 20              # calls of the kernel a timing
+ADAMP_PLAIN_CALLS = 5         # of the plain path (~0.1 s each)
+
+
+def _wall_ms(fn, calls):
+    """Wall milliseconds a call of `fn`, back to back, the device
+    synchronised before and after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def phase_adamp(trainer, state, launches, tag="adamp"):
+    """(e) The multi-leaf AdamP kernel (`AdamP.apply` on the card) against
+    its plain path (`optim._apply_plain`) on the flagship's trees as the
+    train step gives them: 7(a)'s trained state and the gradients of one
+    card backward at batch 24 (MSTFTD's weight gradients come from cuDNN
+    channels-last and are read through their strides). Per side, two
+    steps from the same state, each path from its own output: the worst
+    leaf's update (held where no gate cosine of either step lies within
+    GATE_MARGIN of its threshold; the others reported) and moments within
+    ADAMP_RTOL, the step counters equal; with commit false the kernel
+    returns the inputs bit for bit. Then each path timed: the kernel's
+    device ms a call (torch.profiler, by pass), its host and wall ms, the
+    plain path's wall ms, and the bound from the bytes at the HBM rate.
+    `launches` (the kernel's launches over 7(a)'s timed steps) must be the
+    passes of both sides once a step. Returns the `kernels` entry's
+    numbers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hilcodec_tpu_torch.ops import adamp_kernel as AK
+    from hilcodec_tpu_torch.train.loop import step_generator
+    from hilcodec_tpu_torch.train.optim import _apply_plain
+    from hilcodec_tpu_torch.train.step import to_device
+    from hilcodec_tpu_torch.utils.params import flatten
+
+    wav = to_device(speech_batch(np.random.default_rng(SEED + 50),
+                                 TRAIN_BATCH, TRAIN_SEGMENT), trainer.device)
+    draws = trainer.sample_draws(step_generator(SEED, 50), wav.shape)
+    aux = trainer.compute_grads(state, wav, draws)
+    yes = torch.tensor(True, device=trainer.device)
+    no = torch.tensor(False, device=trainer.device)
+    out, per_step, worst_all = {}, 0, (0.0, "")
+    for side in ("g", "d"):
+        opt = getattr(trainer, f"optim_{side}")
+        grads = aux[f"{side}_grads"]
+        params, st = (getattr(state, f"params_{side}"),
+                      getattr(state, f"opt_{side}"))
+        lr = getattr(trainer, f"sched_{side}")(
+            getattr(trainer, f"lr_{side}"), state.iteration,
+            state.epoch) * state.lr_scale
+        p0 = flatten(params)
+        strided = sum(not t.is_contiguous() for t in flatten(grads).values())
+        near, worst = set(), (0.0, "")
+        pk, sk, pp, sp = params, st, params, st
+        for k in (1, 2):
+            for path, (ch, ch_t, ly, ly_t) in opt.gate_report(grads,
+                                                              pp).items():
+                if (abs(ch - ch_t) <= GATE_MARGIN * ch_t
+                        or abs(ly - ly_t) <= GATE_MARGIN * ly_t):
+                    near.add(path.replace("/", "."))
+            pk, sk = opt.apply(grads, sk, pk, lr, yes)
+            pp, sp = _apply_plain(opt, grads, sp, pp, lr, yes)
+            if int(sk.step) != int(sp.step):
+                raise AssertionError(f"{side}: step {int(sk.step)} against "
+                                     f"{int(sp.step)}")
+            fk, fpp = flatten(pk), flatten(pp)
+            for what, got, ref in (("exp_avg", sk.exp_avg, sp.exp_avg),
+                                   ("exp_avg_sq", sk.exp_avg_sq,
+                                    sp.exp_avg_sq)):
+                fr = flatten(ref)
+                for key, g in flatten(got).items():
+                    worst = max(worst, (_rel_l2(g, fr[key]),
+                                        f"step {k} {what} {key}"))
+            for key, x in p0.items():
+                if key not in near:
+                    worst = max(worst, (_rel_l2(fk[key] - x, fpp[key] - x),
+                                        f"step {k} update {key}"))
+        nk, nsk = opt.apply(grads, st, params, lr, no)
+        kept = int(nsk.step) == int(st.step) and all(
+            torch.equal(a, b) for a, b in zip(
+                flatten((nk, nsk.exp_avg, nsk.exp_avg_sq)).values(),
+                flatten((params, st.exp_avg, st.exp_avg_sq)).values()))
+        table = opt._device_table(p0).table
+        side_launches = 1 + (2 if len(table.rlist) else 0)
+        per_step += side_launches
+
+        def run_k():
+            return opt.apply(grads, st, params, lr, yes)
+
+        host = host_ms(run_k, calls=ADAMP_CALLS)
+        wall = _wall_ms(run_k, ADAMP_CALLS)
+        plain = _wall_ms(lambda: _apply_plain(opt, grads, st, params, lr,
+                                              yes), ADAMP_PLAIN_CALLS)
+        before = AK.LAUNCHES[AK.KERNEL]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ADAMP_CALLS):
+                run_k()
+            torch.cuda.synchronize()
+        passes = {}
+        for e in prof.key_averages():
+            hit = re.search(r"adamp_pass_(\w)", e.key)
+            if e.device_type == DeviceType.CUDA and hit:
+                passes[hit.group(1)] = (passes.get(hit.group(1), 0.0)
+                                        + e.device_time_total
+                                        / ADAMP_CALLS / 1e3)
+        nbytes = AK.bytes_moved(table)
+        bound = nbytes / PEAK_HBM_BYTES * 1e3
+        ms = sum(passes.values())
+        log(f"[{tag}] {side.upper()}: {len(p0)} leaves, "
+            f"{int(table.leaves_i[:, AK.NUMEL].sum()) / 1e6:.2f} M elements, "
+            f"{len(table.rlist)} projected; {strided} gradients in another "
+            f"layout; kernel against plain path over two steps: worst "
+            f"{worst[0]:.2g} ({worst[1]}), bar {ADAMP_RTOL}; gate leaves "
+            f"within {GATE_MARGIN} of a threshold, their updates left out: "
+            f"{sorted(near) or 'none'}; commit false returns the inputs: "
+            f"{kept}. Kernel {ms:.4f} device ms a call ("
+            + ", ".join(f"pass {k} {v:.4f}" for k, v in sorted(
+                passes.items()))
+            + f"; {AK.LAUNCHES[AK.KERNEL] - before} launches in "
+            f"{ADAMP_CALLS} calls), host {host:.2f} ms, wall {wall:.2f} ms; "
+            f"plain path {plain:.1f} ms a call (wall); bound {bound:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB at {PEAK_HBM_BYTES / 1e12:.2f} TB/s)")
+        if worst[0] > ADAMP_RTOL or not kept:
+            raise AssertionError(f"{AK.KERNEL} against the plain path, "
+                                 f"{side}: {worst}, commit false kept the "
+                                 f"inputs: {kept}")
+        if not passes or (AK.LAUNCHES[AK.KERNEL] - before
+                          != side_launches * ADAMP_CALLS):
+            raise AssertionError(f"{AK.KERNEL}, {side}: passes {passes}, "
+                                 f"launches {AK.LAUNCHES[AK.KERNEL] - before}")
+        worst_all = max(worst_all, worst)
+        out[side] = dict(ms=ms, host_ms=host, wall_ms=wall, plain_ms=plain,
+                         bound_ms=bound, leaves=len(p0), strided=strided)
+    log(f"[{tag}] {AK.KERNEL} launches over 7(a)'s {TRAIN_TIMED} timed "
+        f"steps: {launches} ({per_step} a step)")
+    if launches != per_step * TRAIN_TIMED:
+        raise AssertionError(f"{AK.KERNEL} launched {launches} times in "
+                             f"{TRAIN_TIMED} steps, not {per_step} a step")
+    return dict(sides=out, launches=launches, max_rel_err=worst_all[0])
+
+
 def train_cli_setup(tmp, config):
     """A seeded corpus written with the port's write_wav under {tmp}, and
     `config` training on it for one epoch of CLI_STEPS steps at CLI_BATCH,
@@ -1765,12 +1929,14 @@ def summaries_config(tmp, cfg):
 
 
 def phase_train(card):
-    """The train phase, (a) to (d), then phase 8 on (d)'s checkpoint in the
+    """The train phase, (a) to (e), then phase 8 on (d)'s checkpoint in the
     same directory; returns (a)'s step times and K1's launches on the timed
-    steps, and phase 8's launch counts and t = 4 timings."""
+    steps with (e)'s AdamP numbers, and phase 8's launch counts and t = 4
+    timings."""
     import tempfile
     trainer, state, res = phase_train_full(card, profiled=True)
     phase_train_tokens(trainer, state)
+    res["adamp"] = phase_adamp(trainer, state, res["adamp_launches"])
     del trainer, state
     phase_train_parity()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4490,7 +4656,8 @@ def main() -> int:
     import hilcodec_tpu_torch  # noqa: F401  (fails outside a checkout)
     from hilcodec_tpu_torch.ops import rvq_kernel
 
-    from hilcodec_tpu_torch.ops import decoder_kernel, encoder_kernel
+    from hilcodec_tpu_torch.ops import adamp_kernel, decoder_kernel, \
+        encoder_kernel
 
     t_start = time.perf_counter()
 
@@ -4672,6 +4839,20 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": None,
                 "ms_b16": ms16, "plain_ms_b16": plain16,
                 "bound_ms_b16": bound16})
+    # the AdamP kernel (no TPU counterpart: XLA fuses the JAX package's
+    # AdamP), on the flagship's generator and discriminator trees; its
+    # launches over phase 7(a)'s timed steps
+    adamp = train["adamp"]
+    g, d = adamp["sides"]["g"], adamp["sides"]["d"]
+    kernels.append({
+        "name": adamp_kernel.KERNEL, "route": "cuda",
+        "source": adamp_kernel.SOURCE, "replaces": None,
+        "launches_train_path": adamp["launches"],
+        "max_rel_err": adamp["max_rel_err"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": "bytes", "host_ms": g["host_ms"], "ms_d": d["ms"],
+        "plain_ms_d": d["plain_ms"], "bound_ms_d": d["bound_ms"],
+        "host_ms_d": d["host_ms"], "library_ms": None})
     print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,15 @@
 Functional, on trees of tensors: `init(params) -> state` and
 `update(grads, state, params, lr) -> (updates, state)`, the updates to be
 added to the params; `lr` is the step's 0-d rate tensor, so nothing reads
-the device. AdamP projects the update off the radial direction of a
+the device. `apply(grads, state, params, lr, commit) -> (params, state)`
+adds the updates and keeps params and state as they were where the 0-d
+bool `commit` is false (the train step's finite and `do_d` flags). The
+device alone picks AdamP's path: on a CUDA device `apply` launches the
+multi-leaf kernel (`ops/adamp_kernel.py`, `csrc/adamp.cu`) and refuses,
+naming the leaf, a tree it cannot take (a leaf not f32, trees of other
+structures); on the CPU, and for SGDP and RAdam, it takes the plain path,
+`update` and the masked sum. `fused_record()` counts the leaves each path
+updated in this process. AdamP projects the update off the radial direction of a
 scale-invariant weight (the cosine-similarity gate: a channel view first,
 then a layer view) and damps its weight decay by `wd_ratio`; SGDP is SGD
 with the same projection. RAdam rectifies Adam's step once rho_t > 5 and
@@ -22,9 +30,59 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import adamp_kernel as AK
 from ..utils.params import flatten, tree_map, unflatten
 
 Params = Any
+
+# leaves updated by the multi-leaf kernel and by the plain path
+_RECORD = {"fused": 0, "plain": 0}
+
+
+def fused_record() -> Dict[str, int]:
+    """{"fused": leaves the kernel updated, "plain": leaves the plain path
+    updated} in this process, over every `apply`."""
+    return dict(_RECORD)
+
+
+def _apply_plain(opt, grads: Params, state: Any, params: Params,
+                 lr: torch.Tensor, commit: Optional[torch.Tensor]
+                 ) -> Tuple[Params, Any]:
+    """`opt.update`, then the params plus the updates, each leaf of both
+    kept where `commit` is false."""
+    updates, new_state = opt.update(grads, state, params, lr)
+    _RECORD["plain"] += len(flatten(params))
+    if commit is None:
+        return tree_map(lambda p, u: p + u, params, updates), new_state
+    return (tree_map(lambda p, u: torch.where(commit, p + u, p), params,
+                     updates),
+            tree_map(lambda new, old: torch.where(commit, new, old),
+                     new_state, state))
+
+
+def _check_kernel_trees(trees: Tuple[Dict[str, torch.Tensor], ...],
+                        step: torch.Tensor) -> None:
+    """Raise ValueError, naming the leaf, unless the flat trees (params,
+    grads, exp_avg, exp_avg_sq) have the params' leaves in their order and
+    shapes, every leaf f32 on the params' device, and `step` there too."""
+    fp = trees[0]
+    dev = next(iter(fp.values())).device
+    if step.device != dev:
+        raise ValueError(f"AdamP.apply: step on {step.device}, the params "
+                         f"on {dev}")
+    for name, tree in zip(("params", "grads", "exp_avg", "exp_avg_sq"),
+                          trees):
+        if list(tree) != list(fp):
+            odd = sorted(set(tree) ^ set(fp))[:3] or "their order"
+            raise ValueError(f"AdamP.apply: the {name} tree's leaves differ "
+                             f"from the params' ({odd})")
+        for path, t in tree.items():
+            if (t.dtype is not torch.float32 or t.device != dev
+                    or t.shape != fp[path].shape):
+                raise ValueError(
+                    f"AdamP.apply: {name} leaf {path} is {t.dtype} "
+                    f"{tuple(t.shape)} on {t.device}; the kernel takes f32 "
+                    f"leaves of the params' shapes on {dev}")
 
 
 def _norm_rows(x: torch.Tensor) -> torch.Tensor:
@@ -116,6 +174,10 @@ class AdamP:
     wd_ratio: float = 0.1
     nesterov: bool = False
     group_fn: Optional[Callable[[str], Dict[str, Any]]] = None
+    # (paths, shapes, device) -> the kernel's table, or None for a tree
+    # with no element
+    _tables: Dict[Tuple, Optional[AK.DeviceTable]] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def init(self, params: Params) -> AdamPState:
         dev = next(iter(flatten(params).values())).device
@@ -125,6 +187,14 @@ class AdamP:
 
     def leaf_options(self, path: str) -> Dict[str, Any]:
         return _leaf_options(self.group_fn, path)
+
+    def resolved_options(self, path: str) -> Dict[str, Any]:
+        """A leaf's project_channel, weight_decay and lr_scale, by its
+        '.'-joined path."""
+        opts = self.leaf_options(path.replace(".", "/"))
+        return {"project_channel": opts.get("project_channel", False),
+                "weight_decay": opts.get("weight_decay", self.weight_decay),
+                "lr_scale": opts.get("lr_scale", 1.0)}
 
     def update(self, grads: Params, state: AdamPState, params: Params,
                lr: torch.Tensor) -> Tuple[Params, AdamPState]:
@@ -141,9 +211,9 @@ class AdamP:
         updates = {}
         for path, p in flatten(params).items():
             g, m, v = fg[path], fm[path], fv[path]
-            opts = self.leaf_options(path.replace(".", "/"))
-            weight_decay = opts.get("weight_decay", self.weight_decay)
-            lr_leaf = lr * opts.get("lr_scale", 1.0)
+            opts = self.resolved_options(path)
+            weight_decay = opts["weight_decay"]
+            lr_leaf = lr * opts["lr_scale"]
             denom = torch.sqrt(v) / torch.sqrt(bc2) + self.eps
             if self.nesterov:
                 perturb = (b1 * m + (1 - b1) * g) / denom
@@ -151,13 +221,58 @@ class AdamP:
                 perturb = m / denom
             perturb, wd = _adamp_projection(
                 p, g, perturb, self.delta, self.wd_ratio, self.eps,
-                opts.get("project_channel", False))
+                opts["project_channel"])
             update = -lr_leaf / bc1 * perturb
             if weight_decay > 0:
                 # p *= 1 - lr * weight_decay * wd, written additively
                 update = update - lr_leaf * weight_decay * wd * p
             updates[path] = update
         return unflatten(updates), AdamPState(step, new_m, new_v)
+
+    def apply(self, grads: Params, state: AdamPState, params: Params,
+              lr: torch.Tensor, commit: Optional[torch.Tensor] = None
+              ) -> Tuple[Params, AdamPState]:
+        """(params + updates, new state), both as they were where the 0-d
+        bool `commit` is false (None: always commit). The kernel for params
+        on a CUDA device (ValueError for trees it cannot take), the plain
+        path on the CPU. The inputs are left as they are."""
+        fp = flatten(params)
+        if not fp or next(iter(fp.values())).device.type != "cuda":
+            return _apply_plain(self, grads, state, params, lr, commit)
+        trees = (fp, flatten(grads), flatten(state.exp_avg),
+                 flatten(state.exp_avg_sq))
+        _check_kernel_trees(trees, state.step)
+        dt = self._device_table(fp)
+        if dt is None:          # no leaf has an element
+            return _apply_plain(self, grads, state, params, lr, commit)
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=dt.device)
+        if commit is not None:
+            commit = torch.as_tensor(commit, device=dt.device).to(torch.bool)
+        new_p, new_m, new_v, step = AK.step(
+            dt, *(list(t.values()) for t in trees),
+            state.step.to(torch.int32), lr, commit, self.betas, self.eps,
+            self.wd_ratio, self.nesterov)
+        _RECORD["fused"] += len(fp)
+        keys = list(fp)
+        return (unflatten(dict(zip(keys, new_p))),
+                AdamPState(step, unflatten(dict(zip(keys, new_m))),
+                           unflatten(dict(zip(keys, new_v)))))
+
+    def _device_table(self, fp: Dict[str, torch.Tensor]
+                      ) -> Optional[AK.DeviceTable]:
+        """The kernel's table of the flat params' structure on their
+        device, built once per optimizer, structure and device; None for a
+        tree with no element."""
+        dev = next(iter(fp.values())).device
+        shapes = tuple(tuple(t.shape) for t in fp.values())
+        key = (tuple(fp), shapes, dev)
+        if key not in self._tables:
+            table = AK.build_table(shapes,
+                                   [self.resolved_options(k) for k in fp],
+                                   self.delta)
+            self._tables[key] = (AK.DeviceTable(table, dev)
+                                 if len(table.items_a) else None)
+        return self._tables[key]
 
     def gate_report(self, grads: Params, params: Params
                     ) -> Dict[str, Tuple[float, float, float, float]]:
@@ -222,6 +337,12 @@ class SGDP:
             updates[path] = update
         return unflatten(updates), SGDPState(new_buf)
 
+    def apply(self, grads: Params, state: SGDPState, params: Params,
+              lr: torch.Tensor, commit: Optional[torch.Tensor] = None
+              ) -> Tuple[Params, SGDPState]:
+        """As AdamP's, on the plain path."""
+        return _apply_plain(self, grads, state, params, lr, commit)
+
 
 class RAdamState(NamedTuple):
     step: torch.Tensor
@@ -272,6 +393,12 @@ class RAdam:
             return torch.where(use_rect, adaptive, -lr / bc1 * m)
 
         return tree_map(leaf, new_m, new_v), RAdamState(step, new_m, new_v)
+
+    def apply(self, grads: Params, state: RAdamState, params: Params,
+              lr: torch.Tensor, commit: Optional[torch.Tensor] = None
+              ) -> Tuple[Params, RAdamState]:
+        """As AdamP's, on the plain path."""
+        return _apply_plain(self, grads, state, params, lr, commit)
 
 
 class SAMState(NamedTuple):

@@ -8,10 +8,11 @@ discriminator's params and the real feature maps detached); the balancer
 combines them, and one backward pass of the generator takes the combined
 gradient for wav_g and `weight_others` for loss_vq. The discriminator's
 gradients come from a separate forward of its loss on the detached
-generated and the real waveform. The optimizers update both sides; the
+generated and the real waveform. The optimizers update both sides
+(`apply`; on the card AdamP is one multi-leaf kernel a side); the
 generator update is masked by the balancer's finite flag and the
-discriminator's by `do_d` (update ratio and its own non-finite guard), as
-selects on the device; then every spectral-norm `{v, u}` pair of the
+discriminator's by `do_d` (update ratio and its own non-finite guard), on
+the device; then every spectral-norm `{v, u}` pair of the
 discriminators takes one power iteration. Nothing in the step reads a
 value back to the host.
 
@@ -304,23 +305,13 @@ class Trainer:
             finite, do_d = aux["finite"], aux["do_d"]
             lr_g = self.sched_g(self.lr_g, state.iteration,
                                 state.epoch) * state.lr_scale
-            upd_g, new_opt_g = self.optim_g.update(
-                aux["g_grads"], state.opt_g, state.params_g, lr_g)
-            params_g = tree_map(lambda p, u: torch.where(finite, p + u, p),
-                                state.params_g, upd_g)
-            new_opt_g = tree_map(lambda new, old: torch.where(finite, new,
-                                                              old),
-                                 new_opt_g, state.opt_g)
+            params_g, new_opt_g = self.optim_g.apply(
+                aux["g_grads"], state.opt_g, state.params_g, lr_g, finite)
         with span("train.optim_d"), torch.no_grad():
             lr_d = self.sched_d(self.lr_d, state.iteration,
                                 state.epoch) * state.lr_scale
-            upd_d, new_opt_d = self.optim_d.update(
-                aux["d_grads"], state.opt_d, state.params_d, lr_d)
-            params_d = tree_map(lambda p, u: torch.where(do_d, p + u, p),
-                                state.params_d, upd_d)
-            new_opt_d = tree_map(lambda new, old: torch.where(do_d, new,
-                                                              old),
-                                 new_opt_d, state.opt_d)
+            params_d, new_opt_d = self.optim_d.apply(
+                aux["d_grads"], state.opt_d, state.params_d, lr_d, do_d)
         with span("train.spectral_norm"), torch.no_grad():
             params_d = spectral_norm_power_iteration(params_d)
         with span("train.metrics"):

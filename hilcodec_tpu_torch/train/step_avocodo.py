@@ -30,7 +30,7 @@ from ..models.avocodo import AvocodoDiscriminators, pqmf_targets
 from ..models.codec import CodecModel
 from ..ops import rvq as Q
 from ..parallel import dist as D
-from ..utils.params import flatten, tree_map, unflatten
+from ..utils.params import flatten, unflatten
 from .balancer import SimpleBalancer
 from .step import _with_grad, mean_metrics
 
@@ -180,14 +180,12 @@ class AvocodoTrainer:
         with torch.no_grad():
             lr_d = self.sched_d(self.lr_d, state.iteration,
                                 state.epoch) * state.lr_scale
-            upd_d, new_opt_d = self.optim_d.update(
+            params_d, new_opt_d = self.optim_d.apply(
                 aux["d_grads"], state.opt_d, state.params_d, lr_d)
-            params_d = tree_map(lambda p, u: p + u, state.params_d, upd_d)
             lr_g = self.sched_g(self.lr_g, state.iteration,
                                 state.epoch) * state.lr_scale
-            upd_g, new_opt_g = self.optim_g.update(
+            params_g, new_opt_g = self.optim_g.apply(
                 aux["g_grads"], state.opt_g, state.params_g, lr_g)
-            params_g = tree_map(lambda p, u: p + u, state.params_g, upd_g)
         new_state = AvocodoTrainState(
             params_g=params_g, params_d=params_d,
             vq_state=aux["new_vq_state"], opt_g=new_opt_g, opt_d=new_opt_d,

@@ -57,6 +57,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "'hilcodec_tpu_torch.data.pitch_np', "
         "'hilcodec_tpu_torch.utils.onnx_reader', "
         "'hilcodec_tpu_torch.utils.spans', "
+        "'hilcodec_tpu_torch.ops.adamp_kernel', "
         "'hilcodec_tpu_torch.scripts.flops_analysis', "
         "'hilcodec_tpu_torch.scripts.streaming_roofline', "
         "'hilcodec_tpu_torch.scripts.bench_train_step', "
