@@ -120,7 +120,12 @@ without a result line when CUDA is unavailable or a phase fails. Phases:
      engine behind TCP (8 clients x 75 frames against their solo
      streams); its serve CLI; ticks at 16 and 128 slots with the
      profiler; the bench with --model audiodec at 16 and 128 streams;
-     export and infer -f 1 --latency on 3 s of seeded speech;
+     export and infer -f 1 --latency on 3 s of seeded speech; then
+     Mimi's quantizer shapes (`configs/mimi_24k.yaml`): the RVQ kernel at
+     C = 256, K = 2048, n = 1 and n = 7 against the plain cascade at
+     M = 1, 16, 128 and 1024 (tokens exact or ties, two more launches
+     bitwise equal, each plan), and Mimi at its published widths streamed
+     through `encode_stream`, two RVQ launches a frame step;
  13. entropy-coded token streams: the range coder's native and Python
      paths bit-identical on seeded cdfs; the flagship's seeded codec state
      (k-means codebooks) as a checkpoint; `python -m
@@ -2905,6 +2910,79 @@ def phase_audiodec(card):
                 tools_launches=tools_launches, ticks=ticks)
 
 
+MIMI_CONFIG = os.path.join(ROOT, "configs", "mimi_24k.yaml")
+MIMI_ROWS = (1, SERVE_SLOTS, 128, 1024)  # M = 1024: the benchmark's streams
+MIMI_STREAMS = 4
+MIMI_FRAMES = 3
+
+
+def phase_rvq_mimi(dev):
+    """K1 at Mimi's two quantizer shapes (C = 256, K = 2048; the semantic
+    stage n = 1 and the acoustic cascade n = 7) against the plain cascade
+    at MIMI_ROWS (tokens exact or ties, two more launches bitwise equal),
+    each with its plan; then Mimi from configs/mimi_24k.yaml at its
+    published widths, seeded, streamed MIMI_FRAMES frames at MIMI_STREAMS
+    streams through `encode_stream`: two launches a frame step. No timing.
+    Returns (the launches of that stream, the largest dequantized
+    difference)."""
+    import torch
+    from hilcodec_tpu_torch.models.registry import build_codec_model
+    from hilcodec_tpu_torch.ops import rvq, rvq_kernel
+    from hilcodec_tpu_torch.utils.hparams import load_config
+
+    gen = torch.Generator().manual_seed(SEED + 130)
+    max_err = 0.0
+    for n in (1, 7):
+        books = torch.randn((n, 2048, 256), generator=gen).to(dev)
+        for M in MIMI_ROWS:
+            x = torch.randn((1, M, 256), generator=gen)
+            x = (x / x.norm(dim=-1, keepdim=True) * 256 ** 0.5).to(dev)
+            ref = rvq.quantize(x, books, n)
+            got = rvq_kernel.quantize_cuda(x, books, n)
+            same = all(torch.equal(got, rvq_kernel.quantize_cuda(x, books, n))
+                       for _ in range(2))
+            rep = rvq.token_parity_report(got, ref, x, books)
+            err = float((rvq.dequantize(got, books)
+                         - rvq.dequantize(ref, books)).abs().max())
+            max_err = max(max_err, err)
+            plan, _ = rvq_kernel.device_plan(dev, M, 2048, 256, n)
+            ok = rep["ok"] and same and tuple(got.shape) == (n, 1, M)
+            log(f"[mimi-kernel] rvq_cascade M={M} n={n} K=2048 C=256 "
+                f"(G={plan.cluster} TM={plan.rows}, chunk {plan.codes} "
+                f"codewords, ring R={plan.ring}, {plan.tiles} cluster(s), "
+                f"slice {plan.slice} x {plan.chunks} chunk(s), {plan.smem} B "
+                f"shared memory a CTA): mismatches {rep['mismatches']} "
+                f"(ties {rep['ties']}, not ties {rep['not_ties']}), "
+                f"dequantized max abs err {err:.3g}, two more launches "
+                f"{'bitwise equal' if same else 'DIFFER'} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"rvq_cascade at C = 256, K = 2048, "
+                                     f"n = {n}, M = {M}: {rep}")
+
+    hps = load_config(MIMI_CONFIG)
+    model = build_codec_model(hps.model, hps.model_kwargs.to_dict(),
+                              device=dev)
+    params, vq_state = model.init(torch.Generator().manual_seed(SEED + 131))
+    wav = torch.from_numpy(speech_batch(
+        np.random.default_rng(SEED + 132), MIMI_STREAMS,
+        MIMI_FRAMES * model.hop_length)).to(dev)
+    rvq_kernel.reset_launches()
+    tokens, _ = model.encode_stream(params, vq_state, wav,
+                                    model.init_cache(MIMI_STREAMS)[0])
+    torch.cuda.synchronize()
+    launches = rvq_kernel.LAUNCHES[rvq_kernel.KERNEL]
+    log(f"[mimi-kernel] Mimi (configs/mimi_24k.yaml) encode_stream at "
+        f"{MIMI_STREAMS} streams x {MIMI_FRAMES} frames: tokens "
+        f"{tuple(tokens.shape)}, rvq_cascade launches {launches} "
+        f"({2 * MIMI_FRAMES} expected: n = 1 and n = 7 a frame step)")
+    if launches != 2 * MIMI_FRAMES or tuple(tokens.shape) != (
+            8, MIMI_STREAMS, MIMI_FRAMES):
+        raise AssertionError(f"Mimi: {launches} rvq_cascade launches, "
+                             f"tokens {tuple(tokens.shape)}")
+    return launches, max_err
+
+
 # --------------------------------------------------------------- phase 13
 
 LM_STEPS = 60                 # train_lm steps at its default batch of 32
@@ -4695,6 +4773,7 @@ def main() -> int:
     done(11)
     torch.cuda.empty_cache()
     audiodec = phase_audiodec(line)
+    mimi_launches, mimi_err = phase_rvq_mimi(torch.device("cuda", 0))
     done(12)
     torch.cuda.empty_cache()
     entropy = phase_entropy(line)
@@ -4797,6 +4876,16 @@ def main() -> int:
             entry[f"ms_m{M}"], entry[f"plain_ms_m{M}"], \
                 entry[f"bound_ms_m{M}"], _ = audiodec["timings"][M]
     kernels.append(entry)
+    # the same kernel at Mimi's C = 256, K = 2048 (n = 1 and n = 7, two
+    # launches a frame step); checked, not timed here (its device time in
+    # the benchmark's `rvq.device_ms_per_frame.stream`); Mimi has no JAX
+    # counterpart
+    kernels.append({
+        "name": f"{rvq_kernel.KERNEL}@C=256", "route": "cuda",
+        "source": rvq_kernel.SOURCE, "replaces": None,
+        "launches": mimi_launches, "max_abs_err": mimi_err, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None})
     for mod, replaces in ((decoder_kernel,
                            "hilcodec_tpu/ops/pallas_decoder.py:490"),
                           (encoder_kernel,

@@ -3,7 +3,8 @@
 Usage:
   python -m hilcodec_tpu_torch.bench [streams=128] [--seconds S=4]
       [--frames F=1] [--megakernel|--no-megakernel] [--fused] [--dispatch]
-      [--model hilcodec|encodec|avocodo|audiodec] [--dtype f32|bf16w|bf16]
+      [--model hilcodec|encodec|avocodo|audiodec|mimi]
+      [--dtype f32|bf16w|bf16]
       [--depthwise conv|shift] [--mesh] [--device D]
 
 The model is the operating point of bench.py for its family: HILCodec
@@ -11,7 +12,10 @@ defaults with both res_scale set (the flagship), `--model encodec`,
 EnCodec defaults (SEANet + 2-layer LSTM bottleneck), `--model
 avocodo`, AvocodoModel defaults (streaming its full-rate head), or
 `--model audiodec`, AudioDec defaults (hop 300) with a 64-dim VQ; seeded
-init, N(0, 1) codebooks, 8 quantizers of 1024 codes, folded params. It times `encode_stream` then
+init, N(0, 1) codebooks, 8 quantizers of 1024 codes, folded params.
+`--model mimi` is Mimi at its published widths (hop 1920, 12.5 Hz
+frames) with its split quantizer of 8 codebooks of 2048 x 256, seeded
+(`models/mimi.py`; its transformers' ring caches are 16.4 MB a stream). It times `encode_stream` then
 `decode_stream` (frame kernels
 with --megakernel; the plain frame step by default, as in the JAX
 package), or `encode_decode_stream` with --fused, over S seconds of audio
@@ -63,6 +67,7 @@ from .models.codec import CodecModel
 from .models.encodec import EncodecModel
 from .models.codec import cast_streaming_params
 from .models.hilcodec import HILCodec
+from .models.mimi import MimiCodecModel, build_mimi
 from .ops.conv import DEPTHWISE_LOWERINGS
 from .ops.rvq import ResidualVQ
 from .parallel.dist import mesh_devices, place_shards
@@ -78,7 +83,7 @@ _REFUSED = {
                 "frame loop is eager PyTorch and has no such knob",
     "--chunks": "splits the XLA scan's streams into groups; the port's "
                 "frame loop is eager PyTorch and has no such knob"}
-MODELS = ("hilcodec", "encodec", "avocodo", "audiodec")
+MODELS = ("hilcodec", "encodec", "avocodo", "audiodec", "mimi")
 DTYPES = ("f32", "bf16w", "bf16")
 
 
@@ -205,6 +210,11 @@ def build_audiodec_bench_model(device: torch.device) -> CodecModel:
     return CodecModel(AudioDec(), _bench_vq(dim=64), device)
 
 
+def build_mimi_bench_model(device: torch.device) -> CodecModel:
+    """bench.py's `--model mimi` point: Mimi's published widths."""
+    return build_mimi({}, device)
+
+
 def bench_params(model: CodecModel, dtype: str = "f32"):
     """Seeded folded params, cast for the --dtype mode, and N(0, 1)
     codebooks (f32) on the model's device."""
@@ -214,6 +224,8 @@ def bench_params(model: CodecModel, dtype: str = "f32"):
         params = cast_streaming_params(params, torch.bfloat16,
                                        kernels_only=dtype == "bf16w")
     vq = model.vq
+    if isinstance(model, MimiCodecModel):
+        return model.to_device(params, vq.init_state(gen))
     books = torch.randn((vq.num_quantizers, vq.codebook_size, vq.dim),
                         generator=gen)
     return model.to_device(params, {"embed": books})
@@ -374,7 +386,8 @@ def run(argv: List[str]) -> dict:
     build = {"hilcodec": build_bench_model,
              "encodec": build_encodec_bench_model,
              "avocodo": build_avocodo_bench_model,
-             "audiodec": build_audiodec_bench_model}[args.model]
+             "audiodec": build_audiodec_bench_model,
+             "mimi": build_mimi_bench_model}[args.model]
     model = build(device)
     params, vq_state = bench_params(model, args.dtype)
     bench = dispatch_bench if args.dispatch else stream_bench

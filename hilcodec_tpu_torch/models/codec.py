@@ -95,7 +95,8 @@ def residual_vq(vq_kwargs: Dict[str, Any]) -> Q.ResidualVQ:
 def vq_from_kwargs(model_kwargs: Dict[str, Any]):
     """The quantizer a HILCodec `model_kwargs` routes to by its `vq` key
     (JAX `CodecModel.from_config`): "ResidualVQ" (the default), "" for
-    none (`NoVQ`, the ablation) or "ResidualShapeGainVQ"."""
+    none (`NoVQ`, the ablation) or "ResidualShapeGainVQ"; Mimi's
+    "SplitResidualVQ" (`models/mimi.py`), which the JAX package lacks."""
     vq_name = model_kwargs.get("vq", "ResidualVQ")
     vq_kwargs = dict(model_kwargs.get("vq_kwargs") or {})
     if vq_name == "":
@@ -103,6 +104,11 @@ def vq_from_kwargs(model_kwargs: Dict[str, Any]):
     if vq_name == "ResidualShapeGainVQ":
         return ShapeGainVQBridge.from_kwargs(vq_kwargs)
     if vq_name != "ResidualVQ":
+        if vq_name == "SplitResidualVQ":
+            # Mimi's semantic + acoustic quantizers (`models/mimi.py`)
+            from .mimi import SplitResidualVQ
+            return SplitResidualVQ.from_kwargs(vq_kwargs)
+        # the JAX package's message, word for word
         raise ValueError(f"Unknown vq: {vq_name!r} (supported: "
                          f"'ResidualVQ', 'ResidualShapeGainVQ', '')")
     return residual_vq(vq_kwargs)

@@ -1,7 +1,7 @@
 """Model registry: config `model:` name -> CodecModel builder.
 
 Every family of the JAX package: HILCodec, EnCodec, Avocodo and
-AudioDec."""
+AudioDec; and Mimi (`models/mimi.py`), imported when it is asked for."""
 
 from __future__ import annotations
 
@@ -54,4 +54,7 @@ def build_codec_model(name: str, model_kwargs: Dict[str, Any],
         return build_avocodo(model_kwargs, device=device)
     if name == "audiodec":
         return build_audiodec(model_kwargs, device=device)
+    if name == "mimi":
+        from .mimi import build_mimi
+        return build_mimi(model_kwargs, device=device)
     raise ValueError(f"unknown model {name!r}")

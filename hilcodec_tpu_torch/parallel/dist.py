@@ -8,7 +8,9 @@ step has one inside its `shard_map` (grads, metrics, VQ statistics and
 expiry candidates, balancer norms): the helpers here. Every helper takes
 the group and does nothing when it is None, so the single-process step
 runs no collective; at world 1 each leaves its input bit for bit as it
-was (a sum over one rank, a division by 1). The tensors a collective
+was (a sum over one rank, a division by 1). Each collective runs
+inside the span `dist.collective` (`utils/spans.py`), opened only where
+a group is given. The tensors a collective
 takes lie on the trainer's device; `comm_device` is the device of the
 host-side reductions (the card under NCCL, the CPU under gloo).
 
@@ -93,13 +95,20 @@ def comm_device(group=None) -> torch.device:
     return torch.device("cpu")
 
 
+def _collective():
+    """The span `dist.collective`, imported where a collective runs."""
+    from ..utils.spans import span
+    return span("dist.collective")
+
+
 # -- collectives on the trainer's tensors (identity for group None) ----------
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of x over the group's ranks (a new tensor)."""
     if group is None:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    with _collective():
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
@@ -115,7 +124,8 @@ def broadcast0(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     out = x.contiguous().clone()
-    dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+    with _collective():
+        dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
     return out
 
 
@@ -126,7 +136,8 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
         return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
+    with _collective():
+        dist.all_gather(parts, x, group=group)
     return torch.cat(parts)
 
 
@@ -149,7 +160,8 @@ def mean_leaves(leaves: Sequence[torch.Tensor], group
 def barrier(group=None) -> None:
     """Wait for every rank (nothing without a group of two or more)."""
     if world(group) > 1:
-        dist.barrier(group)
+        with _collective():
+            dist.barrier(group)
 
 
 def process_mean(value: float, weight: float = 1.0, group=None) -> float:
@@ -159,7 +171,8 @@ def process_mean(value: float, weight: float = 1.0, group=None) -> float:
         return value
     t = torch.tensor([value * weight, weight], dtype=torch.float64,
                      device=comm_device(group))
-    dist.all_reduce(t, group=group)
+    with _collective():
+        dist.all_reduce(t, group=group)
     return float(t[0] / max(float(t[1]), 1e-12))
 
 
@@ -170,7 +183,8 @@ def all_sum_host(values: Sequence[float], group=None) -> np.ndarray:
     if world(group) == 1:
         return arr
     t = torch.from_numpy(arr).to(comm_device(group))
-    dist.all_reduce(t, group=group)
+    with _collective():
+        dist.all_reduce(t, group=group)
     return t.cpu().numpy()
 
 
@@ -196,7 +210,8 @@ def assert_replicas_consistent(tree: Any, rtol: float = 1e-6,
             bad = j
             break
     first = torch.tensor([bad], dtype=torch.int64, device=mine.device)
-    dist.all_reduce(first, op=dist.ReduceOp.MIN, group=group)
+    with _collective():
+        dist.all_reduce(first, op=dist.ReduceOp.MIN, group=group)
     if int(first) < len(names):
         raise AssertionError(f"replica divergence at {names[int(first)]} "
                              f"(rank {rank(group)} of {world(group)})")

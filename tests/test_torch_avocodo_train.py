@@ -351,8 +351,14 @@ def test_cli_trains_one_epoch(setup):
     os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "configs",
                                                         "*.yaml"))))
 def test_every_shipped_config_builds_its_trainer(config):
-    """Built on the CPU, not stepped."""
+    """Built on the CPU, not stepped. A deploy-only config (Mimi's: the
+    port does not train it) carries no `train` section and builds none."""
     hps = load_config(os.path.join(ROOT, "configs", config))
+    if hps.get("model") == "mimi":
+        assert "train" not in hps.to_dict()
+        with pytest.raises(AttributeError, match="train"):
+            build_trainer(hps, "cpu")
+        return
     tr = build_trainer(hps, "cpu")
     avocodo_own = (hps.get("model") == "avocodo"
                    and hps.train.get("trainer") != "hilcodec")
